@@ -13,16 +13,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    bitwise (inputs hold signed zeros and values exactly at ±t), the DGC
    update bitwise too (tolerance: none), at 1, 4097, 401,408 (the CNN's
    largest leaf) and 50,000,000 elements; then CUDA-event times;
-3. reference check — a 2×2 geo-round of the port's Simulation with a
+3. flash attention — the CUDA forward and backward kernels (built with
+   ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``) against their
+   plain versions in bf16 and f32 at (B,T,H,Dh) = (8,128,6,64) (the
+   flagship LM), (4,2048,16,128) (the MFU config), (2,1000,3,64) (a
+   ragged tail) and (1,1,1,64); tolerance f32 1e-4, bf16 2e-2, each
+   times max(1, largest reference entry); CUDA-event times of kernel,
+   plain version and ``scaled_dot_product_attention`` (a yardstick
+   only, never on the port's path), each beside its bound;
+4. full-width reference step — one forward and backward of the port's
+   transformer at the MFU config's widths (d 2048, 16 heads, 8 layers,
+   d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
+   ``attn_impl="flash"`` and again with ``"dense"`` (and ``"fast"``,
+   which rounds the probabilities as flash does): losses within 1e-3
+   relative, every leaf's gradient within 5e-2 relative L2;
+5. reference check — a 2×2 geo-round of the port's Simulation with a
    shared dyadic gradient function, on the card (torch backend, kernels)
    and on the host (numpy backend, host codecs): weights bitwise equal
    under 2bit and bsc;
-4. geo-round — the port's main path through its user entry point
-   (``geomx_tpu_torch.examples.cnn``): 2 parties × 2 workers + 1 global
+6. geo-rounds — the port's main paths through their user entry points:
+   ``geomx_tpu_torch.examples.cnn`` (2 parties × 2 workers + 1 global
    server, full-width CNN, FSA, Adam, a few steps under 2bit and again
-   under bsc; the launch counts are set to 0 just before each run and
-   read just after it, and each path must launch its own kernels
-   (2bit: quantize and dequantize; bsc: DGC).
+   under bsc) and ``geomx_tpu_torch.examples.lm`` (the flagship LM at
+   full width, 10,276,224 parameters, flash attention, bf16, FSA, Adam,
+   8 steps under 2bit); the launch counts are set to 0 just before each
+   run and read just after it, and each path must launch its own
+   kernels (2bit: quantize and dequantize; bsc: DGC; LM: flash forward
+   and backward, quantize and dequantize).
 
 Prints, before the last line, the kernel table as one JSON object, and
 as the last line ``{"ok": true, "device": {...}}``.  Writes the kernel
@@ -42,11 +59,29 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SIZES = (1, 4097, 401_408, 50_000_000)
 MAIN_N = 401_408              # largest leaf of the CNN: the main path's size
 THRESHOLD = 0.5
 MOMENTUM = 0.9
 STEPS = 12
+# flash attention: (B, T, H, Dh) of the flagship LM (the main path),
+# the MFU config, a ragged tail and one token
+FLASH_SHAPES = ((8, 128, 6, 64), (4, 2048, 16, 128), (2, 1000, 3, 64),
+                (1, 1, 1, 64))
+FLASH_MAIN = ((8, 128, 6, 64), "bfloat16")
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MFU_WIDTHS = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=8,
+                  d_ff=8192, max_seq=2048)     # bench.py MFU_CFG
+MFU_BATCH = 4
+LM_STEPS = 8
+LM_ARGS = ["--parties", "2", "--workers", "2", "--global-servers", "1",
+           "--steps", str(LM_STEPS), "--batch", "8", "--seq", "128",
+           "--vocab", "8192", "--d-model", "384", "--layers", "4",
+           "--heads", "6", "--d-ff", "1536", "--optimizer", "adam",
+           "--lr", "3e-3", "--compression", "2bit", "--attn-impl", "flash",
+           "--compute-dtype", "bfloat16", "--seed", "0"]
+LM_PARAMS = 10_276_224
 
 
 def log(msg: str) -> None:
@@ -236,7 +271,165 @@ def time_kernels(dev, sizes, iters_for) -> dict:
     return out
 
 
-# ---- phase 3: the geo-round against the host reference -----------------
+# ---- phase 3: flash attention against its plain versions ----------------
+
+def flash_costs(shape, dtype: str) -> dict:
+    """Causal attention's work at ``shape``: flops (forward 2 matmuls,
+    backward 5, over the T(T+1)/2 visible pairs of each (b, h)) and
+    bytes (each input read once, each output written once)."""
+    B, T, H, D = shape
+    es = 4 if dtype == "float32" else 2
+    n = B * T * H * D
+    pairs = B * H * T * (T + 1) // 2
+    rows = B * H * T * 4                        # lse (and delta) f32
+    return {"flash_fwd": (2 * 2 * D * pairs, 4 * n * es + rows),
+            "flash_bwd": (5 * 2 * D * pairs, 8 * n * es + rows)}
+
+
+def _bound(flops: float, nbytes: float, dtype: str):
+    peak = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    b_ops = flops / peak * 1e3
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes
+                                 else "bytes")
+
+
+def check_flash(dev) -> dict:
+    """Each flash kernel against its plain version at every shape and
+    dtype, then CUDA-event times of kernel, plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from geomx_tpu_torch.ops import flash_attention as FA
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+
+    t0 = time.perf_counter()
+    FK.library()
+    ptx = [ln.strip() for ln in FK.BUILD_LOG.splitlines()
+           if "registers" in ln or "spill" in ln]
+    log(f"flash kernels built with nvcc in {time.perf_counter() - t0:.1f} s;"
+        f" ptxas: {'; '.join(ptx)}")
+    out = {"build_s": time.perf_counter() - t0, "ptxas": ptx, "by_shape": {}}
+    for shape in FLASH_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            rng = np.random.default_rng(sum(shape))
+            q, k, v, do = (torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32))
+                .to(dev, dtype) for _ in range(4))
+            scale = 1.0 / math.sqrt(shape[-1])
+            o, lse = FK.flash_fwd(q, k, v, scale)
+            ro, rlse = FA.flash_attention_ref(q, k, v, scale)
+            grads = FK.flash_bwd(q, k, v, o, lse, do, scale)
+            refs = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            err = {"flash_fwd": max(_max_abs(o, ro), _max_abs(lse, rlse)),
+                   "flash_bwd": max(_max_abs(g, r)
+                                    for g, r in zip(grads, refs))}
+            tol = {"flash_fwd": FLASH_TOL[dt] * max(
+                       1.0, float(ro.float().abs().max())),
+                   "flash_bwd": FLASH_TOL[dt] * max(
+                       1.0, max(float(r.float().abs().max())
+                                for r in refs))}
+            for name in err:
+                assert err[name] <= tol[name], (
+                    f"{name} {shape} {dt}: max abs err {err[name]} > "
+                    f"{tol[name]}")
+            # SDPA, the library yardstick: [B, H, T, Dh]
+            sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+            sdo = do.transpose(1, 2).contiguous()
+            it = 5 if shape[1] >= 2048 else 50
+            times = {
+                "flash_fwd": (
+                    _time_ms(lambda: FK.flash_fwd(q, k, v, scale), it),
+                    _time_ms(lambda: FA.flash_attention_ref(q, k, v, scale),
+                             it),
+                    _time_ms(lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, is_causal=True), it)),
+                "flash_bwd": (
+                    _time_ms(lambda: FK.flash_bwd(q, k, v, o, lse, do,
+                                                  scale), it),
+                    _time_ms(lambda: FA.flash_attention_bwd_ref(
+                        q, k, v, o, lse, do, scale), it),
+                    _time_ms(lambda: torch.autograd.grad(
+                        so, (sq, sk, sv), sdo, retain_graph=True), it)),
+            }
+            costs = flash_costs(shape, dt)
+            rec = {}
+            for name, (ms, plain_ms, lib_ms) in times.items():
+                flops, nbytes = costs[name]
+                bound_ms, bound_by = _bound(flops, nbytes, dt)
+                rec[name] = {"max_abs_err": err[name], "tol": tol[name],
+                             "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by,
+                             "tflop_per_s": flops / (ms * 1e-3) / 1e12}
+                log(f"flash {name} {shape} {dt}: max abs err "
+                    f"{err[name]:.3g} (tol {tol[name]:.3g}); kernel "
+                    f"{ms:.4f} ms ({rec[name]['tflop_per_s']:.2f} TFLOP/s), "
+                    f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by})")
+            out["by_shape"][f"{shape} {dt}"] = rec
+            del q, k, v, do, o, lse, ro, rlse, grads, refs, sq, sk, sv, so
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 4: full-width reference step, flash against dense ------------
+
+def check_full_width_step(dev) -> dict:
+    """One forward + backward at the MFU config's widths, flash against
+    dense (and fast) attention on the same weights and tokens."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.data import synthetic_lm
+    from geomx_tpu_torch.models.transformer import (
+        TransformerConfig, init_params, make_lm_grad_fn)
+
+    cfg = TransformerConfig(**MFU_WIDTHS, attn_impl="flash")
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    n_params = sum(t.numel() for t in params.values())
+    tokens = synthetic_lm(n=MFU_BATCH, seq=cfg.max_seq, vocab=cfg.vocab,
+                          seed=0)
+
+    def step(impl):
+        fn = make_lm_grad_fn(dataclasses.replace(cfg, attn_impl=impl))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = fn(params, tokens, None)
+        torch.cuda.synchronize()
+        return float(loss), grads, time.perf_counter() - t0
+
+    lf, gf, tf = step("flash")
+    out = {"n_params": n_params, "loss_flash": lf, "wall_s_flash": tf}
+    # dense is the reference the tolerance holds; fast rounds p to bf16
+    # before the PV product as flash does, so it shows how much of the
+    # difference that rounding makes
+    for impl in ("dense", "fast"):
+        lo, go, to = step(impl)
+        rel_loss = abs(lf - lo) / abs(lo)
+        rel = {n: float((gf[n] - go[n]).norm() / go[n].norm()) for n in go}
+        worst = max(rel, key=rel.get)
+        log(f"full-width step ({n_params} params): loss flash {lf:.6f} "
+            f"{impl} {lo:.6f} (rel {rel_loss:.2e}, tol 1e-3); worst leaf "
+            f"grad rel L2 {rel[worst]:.2e} ({worst}, tol 5e-2); wall flash "
+            f"{tf:.3f} s, {impl} {to:.3f} s (first call)")
+        assert math.isfinite(lf) and rel_loss <= 1e-3, \
+            f"flash loss differs from {impl}"
+        assert rel[worst] <= 5e-2, f"flash grad of {worst} differs ({impl})"
+        out[impl] = {"loss": lo, "rel_loss": rel_loss, "grad_rel_l2": rel,
+                     "wall_s": to}
+        del go
+    del params, gf
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 5: the geo-round against the host reference -----------------
 
 def _dyadic_georound(backend: str, compression: str) -> list:
     """2 parties × 2 workers, FSA, SGD lr 1/4, 3 steps, with one dyadic
@@ -318,7 +511,7 @@ def check_reference() -> None:
             "the host numpy reference")
 
 
-# ---- phase 4: the main path ---------------------------------------------
+# ---- phase 6: the main paths ---------------------------------------------
 
 def run_georound(compression: str) -> dict:
     import torch
@@ -358,10 +551,49 @@ def run_georound(compression: str) -> dict:
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
 
 
+def run_lm_georound() -> dict:
+    """The flagship LM through ``geomx_tpu_torch.examples.lm``."""
+    import torch
+
+    from geomx_tpu_torch.examples.lm import build_parser, train
+
+    args = build_parser().parse_args(LM_ARGS)
+    stamps = []
+    out = train(args, log=lambda msg: stamps.append(time.perf_counter()))
+    losses = [l for h in out["histories"].values() for l, _ in h]
+    assert len(losses) == 4 * LM_STEPS, "a worker did not finish its steps"
+    assert all(math.isfinite(x) for x in losses), "non-finite loss"
+    assert out["n_params"] == LM_PARAMS, out["n_params"]
+    params = out["params"]
+    assert params is not None and all(t.is_cuda for t in params.values()), \
+        "final weights are not on the card"
+    assert sum(t.numel() for t in params.values()) == LM_PARAMS
+    assert all(bool(torch.isfinite(t).all()) for t in params.values())
+    for s in out["sim_stats"]["local"] + out["sim_stats"]["global"]:
+        assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
+        assert s["codec_host_bytes"] == 0, f"codec host copies: {s}"
+    steady = (len(stamps) - 3) / (stamps[-1] - stamps[2])
+    tokens_per_step = 4 * args.batch * args.seq
+    wan = out["wan"]["wan_send_bytes"] / LM_STEPS
+    first = [h[0][0] for h in out["histories"].values()]
+    last = [h[-1][0] for h in out["histories"].values()]
+    log(f"geo-round lm 2bit: {LM_STEPS} steps, {out['n_params']} params, "
+        f"loss {np.mean(first):.4f} -> {np.mean(last):.4f}, "
+        f"{steady:.3f} steps/s steady ({steady * tokens_per_step:.0f} "
+        f"tokens/s), {out['seconds']:.2f} s total, WAN bytes/step {wan:.0f}")
+    return {"steps_per_s": steady,
+            "tokens_per_s": steady * tokens_per_step,
+            "wan_bytes_per_step": wan, "n_params": out["n_params"],
+            "loss_first": float(np.mean(first)),
+            "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
+
+
 # the kernels each main path must launch; a kernel's ``launches`` in the
-# kernel table is the count from its own path's run
+# kernel table is the count from the first path that lists it
 PATH_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
-                "bsc": ("dgc_update",)}
+                "bsc": ("dgc_update",),
+                "lm": ("flash_fwd", "flash_bwd", "quantize_2bit",
+                       "dequantize_2bit")}
 
 KERNEL_ROWS = {
     "quantize_2bit": ("geomx_tpu/ops/quantize.py:39 _quant_kernel "
@@ -370,7 +602,31 @@ KERNEL_ROWS = {
                         "(dequantize_2bit_tpu :138)"),
     "dgc_update": ("geomx_tpu/ops/quantize.py:147 _dgc_kernel "
                    "(dgc_update_tpu :174)"),
+    "flash_fwd": ("geomx_tpu/models/transformer.py:245 JAX's bundled "
+                  "pallas.ops.tpu.flash_attention (forward kernel)"),
+    "flash_bwd": ("geomx_tpu/models/transformer.py:245 JAX's bundled "
+                  "pallas.ops.tpu.flash_attention (dK/dV and dQ backward "
+                  "kernels)"),
 }
+ROUTES = {"quantize_2bit": "triton", "dequantize_2bit": "triton",
+          "dgc_update": "triton", "flash_fwd": "cuda", "flash_bwd": "cuda"}
+SOURCES = {"triton": "geomx_tpu_torch/ops/kernels/quantize_triton.py",
+           "cuda": "geomx_tpu_torch/csrc/flash_attention.cu"}
+
+
+def reset_all_launches() -> None:
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_triton as K
+
+    K.reset_launches()
+    FK.reset_launches()
+
+
+def all_launches() -> dict:
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_triton as K
+
+    return {**K.launches(), **FK.launches()}
 
 
 def main() -> int:
@@ -390,7 +646,6 @@ def main() -> int:
         "TRITON_CACHE_DIR", os.path.join(root, "geomx_tpu_torch",
                                          ".kernel_cache"))
     from geomx_tpu_torch.core.platform import resolve_device
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
     # a float32 reference states its matmul and convolution precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -405,34 +660,51 @@ def main() -> int:
                          lambda n: 20 if n >= 10_000_000 else 200)
     log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
 
+    flash = check_flash(dev)
+    log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
+    full = check_full_width_step(dev)
+    log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
+
     check_reference()
 
     geo, launches = {}, {}
-    for comp, names in PATH_KERNELS.items():
-        K.reset_launches()
-        geo[comp] = run_georound(comp)
-        counts = K.launches()
-        geo[comp]["launches"] = counts
-        log(f"main-path launches under {comp}: {counts}")
+    for path, names in PATH_KERNELS.items():
+        reset_all_launches()
+        geo[path] = (run_lm_georound() if path == "lm"
+                     else run_georound(path))
+        counts = all_launches()
+        geo[path]["launches"] = counts
+        log(f"main-path launches under {path}: {counts}")
         for name in names:
             assert counts[name] > 0, \
-                f"{name} was not launched on the {comp} main path"
-            launches[name] = counts[name]
+                f"{name} was not launched on the {path} main path"
+            launches.setdefault(name, counts[name])
     assert set(launches) == set(KERNEL_ROWS), "a kernel has no main path"
 
     rows = []
+    main_shape, main_dt = FLASH_MAIN
     for name, replaces in KERNEL_ROWS.items():
-        t = times[MAIN_N][name]
+        route = ROUTES[name]
+        if route == "triton":
+            t = dict(times[MAIN_N][name], max_abs_err=err[name],
+                     library_ms=None)
+            where = {"n": MAIN_N}
+        else:
+            t = flash["by_shape"][f"{main_shape} {main_dt}"][name]
+            # the error over every shape and dtype checked
+            t = dict(t, max_abs_err=max(
+                r[name]["max_abs_err"] for r in flash["by_shape"].values()))
+            where = {"shape": list(main_shape), "dtype": main_dt}
         rows.append({
-            "name": name, "route": "triton",
-            "source": "geomx_tpu_torch/ops/kernels/quantize_triton.py",
+            "name": name, "route": route, "source": SOURCES[route],
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err[name], "ms": t["ms"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "n": MAIN_N})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **where})
     report = {"nvidia_smi": smi, "kernels": rows,
               "times_by_size": {str(n): v for n, v in times.items()},
+              "flash": flash, "full_width_step": full,
               "georound": geo, "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,4 +1,6 @@
-"""Carry CNN weights between the JAX package and the port.
+"""Carry model weights between the JAX package and the port.
+
+The CNN (:func:`flax_to_torch`, :func:`torch_to_flax`):
 
 The JAX side is a flax parameter tree held as numpy
 (``{"params": {"Conv_0": {"bias", "kernel"}, …}}``); the port side an
@@ -15,6 +17,12 @@ Layouts differ:
 Sorted port names give the same leaf order as
 ``geomx_tpu.training.flatten_params`` (modules in name order, ``bias``
 before ``kernel``/``weight``), so kv key ids agree between the packages.
+
+The flagship transformer (:func:`flax_lm_to_torch`,
+:func:`torch_lm_to_flax`): the JAX param tree ``{"embed", "pos",
+"ln_f", "layers": [{...}, ...]}`` and the port's ordered dict share
+every shape, so conversion only renames along the key path
+(``layers.0.wq``) and orders the leaves as JAX's ``tree_flatten`` does.
 """
 
 from __future__ import annotations
@@ -73,3 +81,37 @@ def torch_to_flax(params: Dict[str, torch.Tensor]) -> dict:
                      .reshape(c * h * wd, -1))
         tree.setdefault(mod, {})["kernel"] = np.ascontiguousarray(k)
     return {"params": tree}
+
+
+def flax_lm_to_torch(tree: dict, device=None
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX transformer params (numpy leaves) → the port's ordered
+    params, in ``tree_flatten`` order (dict keys sorted, list order
+    kept)."""
+    out = OrderedDict()
+    for key in sorted(tree):
+        if key == "layers":
+            for i, layer in enumerate(tree["layers"]):
+                for name in sorted(layer):
+                    out[f"layers.{i}.{name}"] = layer[name]
+        else:
+            out[key] = tree[key]
+    dev = device if device is not None else "cpu"
+    return OrderedDict((n, torch.from_numpy(np.array(v, np.float32)).to(dev))
+                       for n, v in out.items())
+
+
+def torch_lm_to_flax(params: Dict[str, torch.Tensor]) -> dict:
+    """The port's transformer params → the JAX param tree with numpy
+    leaves."""
+    tree: dict = {}
+    layers: Dict[int, dict] = {}
+    for name, t in params.items():
+        a = t.detach().float().cpu().numpy().copy()
+        if name.startswith("layers."):
+            _, i, leaf = name.split(".", 2)
+            layers.setdefault(int(i), {})[leaf] = a
+        else:
+            tree[name] = a
+    tree["layers"] = [layers[i] for i in range(len(layers))]
+    return tree

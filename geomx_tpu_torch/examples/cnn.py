@@ -18,8 +18,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -48,95 +46,20 @@ def build_parser() -> argparse.ArgumentParser:
 def train(args, log=print) -> dict:
     """Run one training job; returns ``{"histories", "params", "sim_stats",
     "wan", "seconds"}``.  The Simulation is shut down before returning."""
-    import torch
-
-    from geomx_tpu_torch.core.config import Config, Topology
     from geomx_tpu_torch.core.platform import resolve_device
     from geomx_tpu_torch.data import ShardedIterator, synthetic_classification
-    from geomx_tpu_torch.kvstore import Simulation
+    from geomx_tpu_torch.examples.common import run_georound
     from geomx_tpu_torch.models import create_model_state
-    from geomx_tpu_torch.training import run_worker
 
     dev = resolve_device(args.device)
-    cfg = Config(
-        topology=Topology(num_parties=args.parties,
-                          workers_per_party=args.workers,
-                          num_global_servers=args.global_servers),
-        sync_global_mode=True,
-        compression=args.compression,
-        bsc_ratio=args.bsc_ratio,
-        merge_backend="torch:cpu" if dev.type == "cpu" else "torch",
-    )
     x, y = synthetic_classification(n=4096, seed=args.seed)
-    num_all = cfg.topology.num_workers_total
     _, params, grad_fn = create_model_state(
         "cnn", args.seed, input_shape=(1, 28, 28, 1), device=dev)
-
-    sim = Simulation(cfg)
-    histories = {}
-    final: dict = {}
-    errors = []
-    lock = threading.Lock()
-    t_start = time.perf_counter()
-
-    def worker_main(party, rank, widx):
-        try:
-            kv = sim.worker(party, rank)
-            if rank == 0:
-                # rank 0 of each party configures its party's server;
-                # one worker ships the optimizer to the global tier
-                if party == 0:
-                    kv.set_optimizer({"type": args.optimizer,
-                                      "lr": args.lr})
-                if args.compression != "none":
-                    kv.set_gradient_compression(
-                        {"type": args.compression,
-                         "ratio": args.bsc_ratio})
-            kv.barrier()
-            it = ShardedIterator(x, y, args.batch, widx, num_all,
-                                 seed=args.seed)
-            t0 = time.perf_counter()
-
-            def step_log(step, loss, acc):
-                if rank == 0 and party == 0:
-                    log(f"step {step:4d}  loss {loss:.4f}  acc {acc:.3f}  "
-                        f"({time.perf_counter() - t0:.2f}s)")
-
-            outp: dict = {}
-            hist = run_worker(kv, params, grad_fn, it, args.steps,
-                              log_fn=step_log, params_out=outp)
-            with lock:
-                histories[(party, rank)] = hist
-                if widx == 0:
-                    final["params"] = outp.get("params")
-        except BaseException as e:  # surfaced after join, not swallowed
-            with lock:
-                errors.append(e)
-
-    threads = []
-    widx = 0
-    for p in range(args.parties):
-        for r in range(args.workers):
-            t = threading.Thread(target=worker_main, args=(p, r, widx),
-                                 daemon=True)
-            t.start()
-            threads.append(t)
-            widx += 1
-    try:
-        for t in threads:
-            t.join()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t_start
-        if errors:
-            raise errors[0]
-        stats = {"local": [ls.stats() for ls in sim.local_servers],
-                 "global": [gs.stats() for gs in sim.global_servers]}
-        wan = sim.wan_bytes()
-    finally:
-        sim.shutdown()
-    return {"histories": histories, "params": final.get("params"),
-            "sim_stats": stats, "wan": wan, "seconds": seconds}
+    return run_georound(
+        args, dev, params, grad_fn,
+        lambda widx, num_all: ShardedIterator(x, y, args.batch, widx,
+                                              num_all, seed=args.seed),
+        log)
 
 
 def main(argv: Optional[list] = None) -> int:

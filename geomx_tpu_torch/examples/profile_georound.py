@@ -1,21 +1,28 @@
-"""Where the time of the CNN geo-round goes on the card.
+"""Where the time of a geo-round goes on the card.
 
-Runs :func:`geomx_tpu_torch.examples.cnn.train` once to build the
-kernels and warm the libraries, then at a short and a long step count,
+Runs the workload's ``train`` (:mod:`geomx_tpu_torch.examples.cnn`, or
+:mod:`geomx_tpu_torch.examples.lm` at the flagship LM's full width with
+flash attention in bf16) once to build the kernels and warm the
+libraries, then at a short and a long step count,
 each twice: once plain (wall time from ``train``'s own ``seconds``) and
 once under ``torch.profiler`` (device time by kernel).  Every figure is
 the long run minus the short one, divided by the difference in steps,
 so set-up, the first barrier and shutdown cancel and what is left is a
 steady-state step.  Reports wall time per step, device time by kernel
 and by group (worker compute, codec kernels, optimizer and merge
-arithmetic, host↔device copies), and the device's idle share
+arithmetic, flash attention, host↔device copies), and the device's
+idle share
 (1 − device time / wall time, both per steady step; device time above
 wall time is an error, not a zero).
 
-    python -m geomx_tpu_torch.examples.profile_cnn --compression 2bit
-    python -m geomx_tpu_torch.examples.profile_cnn --compression bsc --steps 40
+    python -m geomx_tpu_torch.examples.profile_georound --compression 2bit
+    python -m geomx_tpu_torch.examples.profile_georound --compression bsc \\
+        --steps 40
+    python -m geomx_tpu_torch.examples.profile_georound --workload lm \\
+        --steps 13 --short-steps 3
 
-Writes the report to ``chiprun_out/profile_cnn_<compression>.json``
+Writes the report to
+``chiprun_out/profile_<workload>_<compression>.json``
 (under the current directory) and prints a summary.  Needs a CUDA card.
 """
 
@@ -28,17 +35,29 @@ import subprocess
 import sys
 
 CODEC_KERNELS = ("_quant_kernel", "_dequant_kernel", "_dgc_kernel")
+FLASH_KERNELS = ("fwd_kernel<", "delta_kernel<", "dkdv_kernel<",
+                 "dq_kernel<")
+# the flagship LM (training.build_flagship_lm's widths), as chip_smoke.py
+# drives it
+LM_FLAGS = ["--vocab", "8192", "--d-model", "384", "--layers", "4",
+            "--heads", "6", "--d-ff", "1536", "--seq", "128",
+            "--attn-impl", "flash", "--compute-dtype", "bfloat16",
+            "--lr", "3e-3"]
 
 
 def _group(name: str) -> str:
     low = name.lower()
     if name.startswith(CODEC_KERNELS):
         return "codec_kernels"
+    if any(k in name for k in FLASH_KERNELS):
+        return "flash_attention"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(s in low for s in ("conv", "gemm", "cutlass", "sm80", "sm90",
+                              "nvjet", "gemv", "splitk",
                               "wgrad", "dgrad", "cudnn", "xmma", "nhwc",
-                              "max_pool", "softmax", "nll", "relu")):
+                              "max_pool", "softmax", "nll", "relu",
+                              "gelu", "embedding", "index")):
         return "worker_compute"
     if "topk" in low or "sort" in low or "radix" in low:
         return "bsc_topk"
@@ -53,12 +72,18 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _train_args(a, steps: int):
-    from geomx_tpu_torch.examples.cnn import build_parser
+def _example(a):
+    from geomx_tpu_torch.examples import cnn, lm
 
-    return build_parser().parse_args(
+    return {"cnn": cnn, "lm": lm}[a.workload]
+
+
+def _train_args(a, steps: int):
+    flags = (["--workers", "2", *LM_FLAGS] if a.workload == "lm"
+             else ["--lr", "0.001"])
+    return _example(a).build_parser().parse_args(
         ["--compression", a.compression, "--steps", str(steps),
-         "--batch", str(a.batch), "--optimizer", "adam", "--lr", "0.001"])
+         "--batch", str(a.batch), "--optimizer", "adam", *flags])
 
 
 def _run(a, steps: int) -> tuple:
@@ -67,8 +92,7 @@ def _run(a, steps: int) -> tuple:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from geomx_tpu_torch.examples.cnn import train
-
+    train = _example(a).train
     args = _train_args(a, steps)
     plain = train(args, log=lambda *_: None)
     with profile(activities=[ProfilerActivity.CPU,
@@ -86,23 +110,27 @@ def _run(a, steps: int) -> tuple:
 def main(argv=None) -> int:
     import torch
 
-    from geomx_tpu_torch.examples.cnn import train
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", default="cnn", choices=["cnn", "lm"])
     ap.add_argument("--compression", default="2bit",
                     choices=["none", "fp16", "2bit", "bsc", "mpq"])
     ap.add_argument("--steps", type=int, default=30,
                     help="steps of the long run")
     ap.add_argument("--short-steps", type=int, default=5,
                     help="steps of the short run subtracted from it")
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="per worker (default: 32 for the CNN, 8 for "
+                         "the LM)")
     a = ap.parse_args(argv)
+    if a.batch is None:
+        a.batch = 8 if a.workload == "lm" else 32
     if a.steps <= a.short_steps:
         ap.error("--steps must exceed --short-steps")
     if not torch.cuda.is_available():
-        print("profile_cnn: no CUDA device", file=sys.stderr)
+        print("profile_georound: no CUDA device", file=sys.stderr)
         return 2
-    train(_train_args(a, a.short_steps), log=lambda *_: None)  # warm up
+    _example(a).train(_train_args(a, a.short_steps),
+                      log=lambda *_: None)  # warm up
     wall_s, dev_s, wan_s = _run(a, a.short_steps)
     wall_l, dev_l, wan_l = _run(a, a.steps)
     d = a.steps - a.short_steps
@@ -124,7 +152,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     report = {
-        "nvidia_smi": smi, "compression": a.compression,
+        "nvidia_smi": smi, "workload": a.workload,
+        "compression": a.compression,
         "steps": a.steps, "short_steps": a.short_steps, "batch": a.batch,
         "wall_s": {"short": wall_s, "long": wall_l},
         "wall_ms_per_step": wall * 1e3,
@@ -138,11 +167,12 @@ def main(argv=None) -> int:
         "wan_bytes_per_step": (wan_l - wan_s) / d,
     }
     os.makedirs("chiprun_out", exist_ok=True)
-    path = os.path.join("chiprun_out", f"profile_cnn_{a.compression}.json")
+    path = os.path.join("chiprun_out",
+                        f"profile_{a.workload}_{a.compression}.json")
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
-        "nvidia_smi", "compression", "wall_ms_per_step",
+        "nvidia_smi", "workload", "compression", "wall_ms_per_step",
         "device_ms_per_step", "device_idle_share", "groups_ms_per_step",
         "wan_bytes_per_step")}))
     return 0

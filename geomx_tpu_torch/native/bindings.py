@@ -2,7 +2,9 @@
 
 Build is on-demand: first import compiles ``libgeocodecs.so`` with the
 Makefile (g++; pybind11 isn't available in this environment, so the C ABI
-+ ctypes is the binding layer).  If no toolchain is present the import
++ ctypes is the binding layer), under a file lock and into a temporary
+name moved onto the library, so concurrent first loads in several
+processes all end up loading one complete build.  If no toolchain is present the import
 degrades gracefully — ``available() == False`` and callers fall back to
 the numpy implementations, which remain the semantic reference.
 """
@@ -17,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 
+from geomx_tpu_torch.utils.build import locked_build
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "libgeocodecs.so")
 _lock = threading.Lock()
@@ -30,12 +34,17 @@ _i64 = ctypes.c_int64
 _f32 = ctypes.c_float
 
 
+def _make(out: str) -> None:
+    subprocess.run(["make", "-s", "-B", "-C", _DIR, f"OUT={out}"],
+                   check=True, capture_output=True, timeout=120)
+
+
 def _build() -> bool:
+    """Rebuild under the cross-process lock (compile to a temporary
+    name, then move it onto the library): concurrent first loads wait
+    for one build and load its result."""
     try:
-        subprocess.run(
-            ["make", "-s", "-C", _DIR, "libgeocodecs.so"],
-            check=True, capture_output=True, timeout=120,
-        )
+        locked_build(_SO, _stale, _make)
         return os.path.exists(_SO)
     except (OSError, subprocess.SubprocessError):
         return False

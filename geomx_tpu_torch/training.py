@@ -131,3 +131,40 @@ def run_worker(
     if params_out is not None:
         params_out["params"] = params
     return history
+
+
+def build_flagship_lm(device=None, attn_impl: str = "fast"):
+    """The flagship LM workload, sized by the ``GEOMX_LM_*`` variables
+    with the JAX package's defaults (vocab 8192, d_model 384, 6 heads,
+    4 layers, d_ff 1536, seq 128: 10,276,224 f32 parameters), bf16
+    compute, on ``device`` (CUDA unless ``"cpu"``).  Returns ``(cfg,
+    params, n_params, grad_fn, data)``; ``data`` is 512 synthetic token
+    sequences.  ``GEOMX_LM_MOE_EXPERTS > 0`` asks for MoE layers, which
+    are not ported yet and raise NotImplementedError."""
+    import os
+
+    from geomx_tpu_torch.data import synthetic_lm
+    from geomx_tpu_torch.models.transformer import (
+        TransformerConfig, create_lm_state)
+
+    def _e(name, dflt):
+        return int(os.environ.get(name, dflt))
+
+    moe_experts = _e("GEOMX_LM_MOE_EXPERTS", 0)
+    cfg = TransformerConfig(
+        vocab=_e("GEOMX_LM_VOCAB", 8192),
+        d_model=_e("GEOMX_LM_DMODEL", 384),
+        n_heads=_e("GEOMX_LM_HEADS", 6),
+        n_layers=_e("GEOMX_LM_LAYERS", 4),
+        d_ff=_e("GEOMX_LM_DFF", 1536),
+        max_seq=_e("GEOMX_LM_SEQ", 128),
+        attn_impl=attn_impl,
+        moe_every=2 if moe_experts > 0 else 0,
+        n_experts=max(moe_experts, 1),
+        moe_top_k=(min(_e("GEOMX_LM_MOE_TOP_K", 2), moe_experts)
+                   if moe_experts > 0 else 0),
+    )
+    params, grad_fn = create_lm_state(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in params.values())
+    data = synthetic_lm(n=512, seq=cfg.max_seq, vocab=cfg.vocab, seed=0)
+    return cfg, params, n_params, grad_fn, data
