@@ -21,12 +21,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    times max(1, largest reference entry); CUDA-event times of kernel,
    plain version and ``scaled_dot_product_attention`` (a yardstick
    only, never on the port's path), each beside its bound;
+3b. block attention — the CUDA kernel of a ring hop's partial block
+   (``geomx_tpu_torch/csrc/block_attention.cu``) against its plain
+   version in bf16 and f32, for the three hop geometries (diagonal
+   ``(0, 0)``, below ``(T, 0)``, above ``(0, T)``) and non-causal, at
+   (B,T,H,D) = (4,512,16,128) (the MFU config's hop at sp = 4: the main
+   path), (8,32,6,64) (the flagship LM's at sp = 4), a ragged
+   (2,250,3,64) and (1,1,1,64); ``m``, ``l`` and ``o`` each within f32
+   1e-4 / bf16 2e-2 times max(1, its largest unmasked reference entry),
+   masked maxima exactly -1e30; CUDA-event times of kernel, plain
+   version and ``scaled_dot_product_attention`` on the same block and
+   mask (a yardstick only: it returns normalised ``o``), each beside its
+   bound;
 4. full-width reference step — one forward and backward of the port's
    transformer at the MFU config's widths (d 2048, 16 heads, 8 layers,
    d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
    ``attn_impl="flash"`` and again with ``"dense"`` (and ``"fast"``,
    which rounds the probabilities as flash does): losses within 1e-3
    relative, every leaf's gradient within 5e-2 relative L2;
+4b. the sequence-parallel step — the same weights and tokens through
+   ``make_apply(cfg, mesh)`` on ``make_mesh({"dp": 1, "sp": 4, "tp": 1},
+   devices=[card] * 4)`` with ring attention and ``attn_impl="flash"``
+   (the main path of the block kernel: the launch counts are set to 0
+   just before its forward and backward and read just after, and must
+   be 8 layers × 4² = 128): loss and every gradient held to the
+   single-device dense and fast steps of phase 4 with phase 4's gates;
+   one forward with ``sp_attn="ulysses"`` against dense; then 3 Adam
+   steps (lr 1e-3) on the repeated batch, whose loss must fall; the
+   steps' wall times, and the last step's device time by kernel
+   (``torch.profiler``, the device's own entries only);
 5. reference check — a 2×2 geo-round of the port's Simulation with a
    shared dyadic gradient function, on the card (torch backend, kernels)
    and on the host (numpy backend, host codecs): weights bitwise equal
@@ -40,6 +63,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    run and read just after it, and each path must launch its own
    kernels (2bit: quantize and dequantize; bsc: DGC; LM: flash forward
    and backward, quantize and dequantize).
+
+The two CUDA sources are built with ``nvcc`` at the start, in parallel,
+while the Triton phase runs.
 
 Prints, before the last line, the kernel table as one JSON object, and
 as the last line ``{"ok": true, "device": {...}}``.  Writes the kernel
@@ -82,6 +108,13 @@ LM_ARGS = ["--parties", "2", "--workers", "2", "--global-servers", "1",
            "--lr", "3e-3", "--compression", "2bit", "--attn-impl", "flash",
            "--compute-dtype", "bfloat16", "--seed", "0"]
 LM_PARAMS = 10_276_224
+# block attention: (B, T, H, D) of the MFU config's ring hop at sp = 4
+# (the main path), the flagship LM's at sp = 4, a ragged tail, one token
+BLOCK_SHAPES = ((4, 512, 16, 128), (8, 32, 6, 64), (2, 250, 3, 64),
+                (1, 1, 1, 64))
+BLOCK_MAIN = ((4, 512, 16, 128), "bfloat16", "below")
+SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
+SP_ADAM_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -303,13 +336,9 @@ def check_flash(dev) -> dict:
     from geomx_tpu_torch.ops import flash_attention as FA
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
 
-    t0 = time.perf_counter()
-    FK.library()
-    ptx = [ln.strip() for ln in FK.BUILD_LOG.splitlines()
-           if "registers" in ln or "spill" in ln]
-    log(f"flash kernels built with nvcc in {time.perf_counter() - t0:.1f} s;"
-        f" ptxas: {'; '.join(ptx)}")
-    out = {"build_s": time.perf_counter() - t0, "ptxas": ptx, "by_shape": {}}
+    ptx = _ptxas(FK.LIB)
+    log(f"flash kernels: ptxas: {'; '.join(ptx)}")
+    out = {"ptxas": ptx, "by_shape": {}}
     for shape in FLASH_SHAPES:
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
@@ -377,11 +406,148 @@ def check_flash(dev) -> dict:
     return out
 
 
+# ---- the CUDA builds, in parallel ----------------------------------------
+
+def start_cuda_builds():
+    """Start ``nvcc`` on every CUDA source at once; returns the futures
+    (``.result()`` re-raises a failed build)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    t0 = time.perf_counter()
+
+    def build(lib):
+        lib.load()
+        return time.perf_counter() - t0
+
+    futs = {name: pool.submit(build, lib)
+            for name, lib in (("flash", FK.LIB), ("block", KB.LIB))}
+    pool.shutdown(wait=False)
+    return futs
+
+
+def _ptxas(lib) -> list:
+    return [ln.strip() for ln in lib.log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+# ---- phase 3b: block attention against its plain version ---------------
+
+def _geometries(T: int) -> dict:
+    """(q_off, k_off, causal) of each ring-hop geometry."""
+    return {"diagonal": (0, 0, True), "below": (T, 0, True),
+            "above": (0, T, True), "noncausal": (0, 0, False)}
+
+
+def block_costs(shape, q_off: int, k_off: int, causal: bool,
+                dtype: str) -> tuple:
+    """(flops, bytes) the block's function needs: two products over the
+    visible (query, key) pairs, and for each fully masked row the sum of
+    v over its keys; q, k, v read once, m, l, o (f32) written once."""
+    B, T, H, D = shape
+    es = 4 if dtype == "float32" else 2
+    i = q_off + np.arange(T)
+    if causal:
+        vis = np.clip(i - k_off + 1, 0, T)
+    else:
+        vis = np.full(T, T)
+    pairs = int(vis.sum()) * B * H
+    masked_rows = int((vis == 0).sum()) * B * H
+    flops = 4 * D * pairs + T * D * masked_rows
+    nbytes = 3 * B * T * H * D * es + (2 * B * T * H + B * T * H * D) * 4
+    return flops, nbytes
+
+
+def _block_check(got, ref, tol: float) -> tuple:
+    """({output: error}, {output: allowance}) for m, l and o, each held
+    to ``tol`` times max(1, its largest unmasked reference entry); a
+    masked maximum (-1e30) must be exact."""
+    import torch
+
+    errs, allows = {}, {}
+    for name, g, r in zip("mlo", got, ref):
+        masked = r <= -1e29
+        assert torch.equal(g[masked], r[masked]), f"{name}: masked rows"
+        live = r[~masked]
+        allows[name] = tol * max(
+            1.0, float(live.abs().max()) if live.numel() else 0.0)
+        errs[name] = _max_abs(g[~masked], live)
+        assert errs[name] <= allows[name], \
+            f"{name}: max abs err {errs[name]} > {allows[name]}"
+    return errs, allows
+
+
+def check_block(dev) -> dict:
+    """The block kernel against its plain version at every shape, dtype
+    and geometry, then CUDA-event times of kernel, plain version and SDPA
+    on the same block and mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from geomx_tpu_torch.ops import block_attention as BA
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
+
+    ptx = _ptxas(KB.LIB)
+    log(f"block kernel: ptxas: {'; '.join(ptx)}")
+    out = {"ptxas": ptx, "by_case": {}}
+    for shape in BLOCK_SHAPES:
+        B, T, H, D = shape
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            rng = np.random.default_rng(sum(shape) + 1)
+            q, k, v = (torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32))
+                .to(dev, dtype) for _ in range(3))
+            sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            it = 20 if T >= 512 else 50
+            for geo, (qo, ko, causal) in _geometries(T).items():
+                offs = (qo, ko)
+                got = KB.block_attn_fwd(q, k, v, offs, causal)
+                ref = BA.block_attention_ref(q, k, v, offs, causal)
+                torch.cuda.synchronize()
+                errs, allows = _block_check(got, ref, FLASH_TOL[dt])
+                mask = None
+                if causal:
+                    i = torch.arange(T, device=dev)
+                    mask = (qo + i)[:, None] >= (ko + i)[None, :]
+                ms = _time_ms(lambda: KB.block_attn_fwd(q, k, v, offs,
+                                                        causal), it)
+                plain_ms = _time_ms(lambda: BA.block_attention_ref(
+                    q, k, v, offs, causal), it)
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask), it)
+                flops, nbytes = block_costs(shape, qo, ko, causal, dt)
+                bound_ms, bound_by = _bound(flops, nbytes, dt)
+                rec = {"max_abs_err": max(errs.values()), "errs": errs,
+                       "tols": allows, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "flops": flops, "bytes": nbytes,
+                       "tflop_per_s": flops / (ms * 1e-3) / 1e12}
+                out["by_case"][f"{shape} {dt} {geo}"] = rec
+                log(f"block {shape} {dt} {geo}: max abs err m/l/o "
+                    + "/".join(f"{errs[n]:.3g}" for n in "mlo")
+                    + " (tol " + "/".join(f"{allows[n]:.3g}" for n in "mlo")
+                    + f"); kernel {ms:.4f} ms "
+                    f"({rec['tflop_per_s']:.2f} TFLOP/s), plain "
+                    f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by})")
+                del got, ref
+            del q, k, v, sq, sk, sv
+            torch.cuda.empty_cache()
+    return out
+
+
 # ---- phase 4: full-width reference step, flash against dense ------------
 
-def check_full_width_step(dev) -> dict:
+def check_full_width_step(dev) -> tuple:
     """One forward + backward at the MFU config's widths, flash against
-    dense (and fast) attention on the same weights and tokens."""
+    dense (and fast) attention on the same weights and tokens.  Returns
+    the summary and what phase 4b holds the sequence-parallel step to:
+    the weights, the tokens and the dense and fast losses and grads."""
     import dataclasses
 
     import torch
@@ -406,13 +572,13 @@ def check_full_width_step(dev) -> dict:
 
     lf, gf, tf = step("flash")
     out = {"n_params": n_params, "loss_flash": lf, "wall_s_flash": tf}
+    refs = {"cfg": cfg, "params": params, "tokens": tokens}
     # dense is the reference the tolerance holds; fast rounds p to bf16
     # before the PV product as flash does, so it shows how much of the
     # difference that rounding makes
     for impl in ("dense", "fast"):
         lo, go, to = step(impl)
-        rel_loss = abs(lf - lo) / abs(lo)
-        rel = {n: float((gf[n] - go[n]).norm() / go[n].norm()) for n in go}
+        rel_loss, rel = _rel_diffs(lf, gf, lo, go)
         worst = max(rel, key=rel.get)
         log(f"full-width step ({n_params} params): loss flash {lf:.6f} "
             f"{impl} {lo:.6f} (rel {rel_loss:.2e}, tol 1e-3); worst leaf "
@@ -423,8 +589,135 @@ def check_full_width_step(dev) -> dict:
         assert rel[worst] <= 5e-2, f"flash grad of {worst} differs ({impl})"
         out[impl] = {"loss": lo, "rel_loss": rel_loss, "grad_rel_l2": rel,
                      "wall_s": to}
-        del go
-    del params, gf
+        refs[impl] = (lo, go)
+    del gf
+    torch.cuda.empty_cache()
+    return out, refs
+
+
+def _rel_diffs(loss, grads, ref_loss, ref_grads) -> tuple:
+    """(relative loss difference, {leaf: relative L2 gradient
+    difference})."""
+    rel = {n: float((grads[n] - ref_grads[n]).norm() / ref_grads[n].norm())
+           for n in ref_grads}
+    return abs(loss - ref_loss) / abs(ref_loss), rel
+
+
+# ---- phase 4b: the sequence-parallel step ------------------------------
+
+def _device_ms_by_kernel(fn) -> dict:
+    """Device time (ms) of each kernel and copy over one call of ``fn``
+    (``torch.profiler``).  Only the device's own entries count: a CPU
+    op's entry carries the time of the kernels it launched, which the
+    kernels' entries count already."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        if ms > 0:
+            out[evt.key] = out.get(evt.key, 0.0) + ms
+    return out
+
+
+def check_sp_step(dev, refs: dict) -> dict:
+    """The MFU-width step sequence parallel over 4 ranks on the card (ring
+    attention, the block kernel on every hop) against phase 4's
+    single-device dense and fast steps; a Ulysses forward against dense;
+    3 Adam steps on the repeated batch.  The launch counts around the
+    ring step are this path's."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.models.transformer import (
+        lm_loss, make_apply, make_lm_grad_fn)
+    from geomx_tpu_torch.parallel import make_mesh
+
+    cfg, params, tokens = refs["cfg"], refs["params"], refs["tokens"]
+    mesh = make_mesh(SP_MESH, devices=[dev] * SP_MESH["sp"])
+    ring = dataclasses.replace(cfg, attn_impl="flash", sp_attn="ring")
+    grad_fn = make_lm_grad_fn(ring, mesh)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    loss, _, grads = grad_fn(params, tokens, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_launches()
+    loss = float(loss)
+    want = cfg.n_layers * SP_MESH["sp"] ** 2
+    log(f"sp step (ring, flash, sp={SP_MESH['sp']} on one card): loss "
+        f"{loss:.6f}, wall {wall:.3f} s (first call), launches {counts}")
+    assert counts["block_attn_fwd"] == want, \
+        f"block kernel launched {counts['block_attn_fwd']} times, not {want}"
+    out = {"loss": loss, "wall_s": wall, "launches": counts}
+    for impl in ("dense", "fast"):
+        rel_loss, rel = _rel_diffs(loss, grads, *refs[impl])
+        worst = max(rel, key=rel.get)
+        log(f"sp step against single-device {impl}: loss rel "
+            f"{rel_loss:.2e} (tol 1e-3); worst leaf grad rel L2 "
+            f"{rel[worst]:.2e} ({worst}, tol 5e-2)")
+        assert math.isfinite(loss) and rel_loss <= 1e-3, \
+            f"sp loss differs from {impl}"
+        assert rel[worst] <= 5e-2, f"sp grad of {worst} differs ({impl})"
+        out[impl] = {"rel_loss": rel_loss, "grad_rel_l2": rel}
+    del grads
+
+    x = torch.as_tensor(tokens, device=dev).long()
+    uly = make_apply(dataclasses.replace(ring, sp_attn="ulysses"), mesh)
+    with torch.no_grad():
+        lu = float(lm_loss(uly, params, x))
+        rel_u = abs(lu - refs["dense"][0]) / abs(refs["dense"][0])
+        log(f"sp forward (ulysses): loss {lu:.6f}, rel to dense "
+            f"{rel_u:.2e} (tol 1e-3)")
+        assert rel_u <= 1e-3, "ulysses loss differs from dense"
+        out["ulysses"] = {"loss": lu, "rel_loss": rel_u}
+
+    apply = make_apply(ring, mesh)
+    p = {n: t.detach().requires_grad_(True) for n, t in params.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=1e-3)
+    losses, walls = [], []
+
+    def adam_step():
+        opt.zero_grad(set_to_none=True)
+        step_loss = lm_loss(apply, p, x)
+        step_loss.backward()
+        opt.step()
+        losses.append(float(step_loss.detach()))
+
+    for _ in range(SP_ADAM_STEPS - 1):
+        t0 = time.perf_counter()
+        adam_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # the last step runs under the profiler: its device time by kernel
+    by_kernel = _device_ms_by_kernel(adam_step)
+    device_ms = sum(by_kernel.values())
+    block_ms = sum(v for k, v in by_kernel.items()
+                   if "block_attn_kernel" in k)
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    log(f"sp Adam steps on a repeated batch: losses {losses}, walls "
+        f"{[round(w, 3) for w in walls]} s (the last step profiled)")
+    log(f"sp Adam step device time {device_ms:.3f} ms, block kernel "
+        f"{block_ms:.3f} ms ({want} launches, {100 * block_ms / device_ms:.1f} "
+        f"%); top kernels (ms): "
+        + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top.items()))
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], \
+        "the sp step's loss did not fall"
+    out["adam"] = {"losses": losses, "wall_s": walls,
+                   "profiled_step": {"device_ms": device_ms,
+                                     "block_kernel_ms": block_ms,
+                                     "top_kernels_ms": top}}
+    del p, opt
     torch.cuda.empty_cache()
     return out
 
@@ -607,26 +900,36 @@ KERNEL_ROWS = {
     "flash_bwd": ("geomx_tpu/models/transformer.py:245 JAX's bundled "
                   "pallas.ops.tpu.flash_attention (dK/dV and dQ backward "
                   "kernels)"),
+    "block_attn_fwd": ("geomx_tpu/ops/block_attention.py:72 _kernel "
+                       "(pallas_call :141, flash_block_attention :154)"),
 }
-ROUTES = {"quantize_2bit": "triton", "dequantize_2bit": "triton",
-          "dgc_update": "triton", "flash_fwd": "cuda", "flash_bwd": "cuda"}
-SOURCES = {"triton": "geomx_tpu_torch/ops/kernels/quantize_triton.py",
-           "cuda": "geomx_tpu_torch/csrc/flash_attention.cu"}
+_TRITON = ("triton", "geomx_tpu_torch/ops/kernels/quantize_triton.py")
+_FLASH = ("cuda", "geomx_tpu_torch/csrc/flash_attention.cu")
+# (route, source) of each kernel
+ROUTES = {"quantize_2bit": _TRITON, "dequantize_2bit": _TRITON,
+          "dgc_update": _TRITON, "flash_fwd": _FLASH, "flash_bwd": _FLASH,
+          "block_attn_fwd": ("cuda",
+                             "geomx_tpu_torch/csrc/block_attention.cu")}
+
+
+def _launch_modules():
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_triton as K
+
+    return K, FK, KB
 
 
 def reset_all_launches() -> None:
-    from geomx_tpu_torch.ops.kernels import flash_attention as FK
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
-
-    K.reset_launches()
-    FK.reset_launches()
+    for mod in _launch_modules():
+        mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from geomx_tpu_torch.ops.kernels import flash_attention as FK
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
-
-    return {**K.launches(), **FK.launches()}
+    out = {}
+    for mod in _launch_modules():
+        out.update(mod.launches())
+    return out
 
 
 def main() -> int:
@@ -655,15 +958,25 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    builds = start_cuda_builds()
     err = check_kernels(dev)
     times = time_kernels(dev, SIZES,
                          lambda n: 20 if n >= 10_000_000 else 200)
     log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
+    build_s = {name: f.result() for name, f in builds.items()}
+    log(f"CUDA sources built with nvcc, in parallel: "
+        f"{ {n: round(v, 1) for n, v in build_s.items()} } s")
 
     flash = check_flash(dev)
     log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
-    full = check_full_width_step(dev)
+    block = check_block(dev)
+    log(f"phase 3b done in {time.perf_counter() - t0:.1f} s")
+    full, refs = check_full_width_step(dev)
     log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
+    sp = check_sp_step(dev, refs)
+    del refs
+    torch.cuda.empty_cache()
+    log(f"phase 4b done in {time.perf_counter() - t0:.1f} s")
 
     check_reference()
 
@@ -679,16 +992,26 @@ def main() -> int:
             assert counts[name] > 0, \
                 f"{name} was not launched on the {path} main path"
             launches.setdefault(name, counts[name])
+    # the block kernel's main path is phase 4b's sequence-parallel step
+    launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
     assert set(launches) == set(KERNEL_ROWS), "a kernel has no main path"
 
     rows = []
     main_shape, main_dt = FLASH_MAIN
     for name, replaces in KERNEL_ROWS.items():
-        route = ROUTES[name]
+        route, source = ROUTES[name]
         if route == "triton":
             t = dict(times[MAIN_N][name], max_abs_err=err[name],
                      library_ms=None)
             where = {"n": MAIN_N}
+        elif name == "block_attn_fwd":
+            b_shape, b_dt, b_geo = BLOCK_MAIN
+            t = block["by_case"][f"{b_shape} {b_dt} {b_geo}"]
+            # the error over every shape, dtype and geometry checked
+            t = dict(t, max_abs_err=max(
+                r["max_abs_err"] for r in block["by_case"].values()))
+            where = {"shape": list(b_shape), "dtype": b_dt,
+                     "geometry": b_geo}
         else:
             t = flash["by_shape"][f"{main_shape} {main_dt}"][name]
             # the error over every shape and dtype checked
@@ -696,15 +1019,16 @@ def main() -> int:
                 r[name]["max_abs_err"] for r in flash["by_shape"].values()))
             where = {"shape": list(main_shape), "dtype": main_dt}
         rows.append({
-            "name": name, "route": route, "source": SOURCES[route],
+            "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **where})
-    report = {"nvidia_smi": smi, "kernels": rows,
+    report = {"nvidia_smi": smi, "kernels": rows, "build_s": build_s,
               "times_by_size": {str(n): v for n, v in times.items()},
-              "flash": flash, "full_width_step": full,
+              "flash": flash, "block": block, "full_width_step": full,
+              "sp_step": sp,
               "georound": geo, "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -65,11 +65,14 @@ def _group(name: str) -> str:
 
 
 def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
+    """The device time of a kernel's or copy's entry; 0 for a CPU op's,
+    which carries the time of the kernels it launched and would count
+    them twice."""
+    from torch.autograd import DeviceType
+
+    if evt.device_type == DeviceType.CPU:
+        return 0.0
+    return float(evt.self_device_time_total)
 
 
 def _example(a):

@@ -1,5 +1,6 @@
-"""The flagship transformer LM on one device — the port of the JAX
-package's ``models/transformer.py`` (single-device part).
+"""The flagship transformer LM — the port of the JAX package's
+``models/transformer.py``: one device, or sequence parallel over a
+mesh's ``sp`` axis.
 
 A GPT-style LM: token + learned position embedding, ``n_layers`` blocks
 of RMSNorm → causal self-attention → residual → RMSNorm → GELU MLP →
@@ -17,8 +18,14 @@ order kept: ``embed``, each layer's ``ln1, ln2, w1, w2, wk, wo, wq, wv``,
 Single-device attention per ``attn_impl``: ``dense`` (all-f32),
 ``fast`` (bf16 operands, f32 accumulation and softmax) or ``flash``
 (the hand CUDA kernels on the card, their plain versions on the CPU).
-Not yet ported, and refused rather than run differently: a mesh
-(sequence/tensor parallelism), ``remat``, and MoE layers.
+With a mesh whose ``sp`` axis is larger than 1, attention runs sequence
+parallel per ``sp_attn``: ring attention (``attn_impl="flash"`` puts
+each hop's block on the hand block-attention kernel) or Ulysses.  The
+mesh is single-controller (:mod:`geomx_tpu_torch.parallel.mesh`): its
+ranks may share one card, or the CPU.  ``remat`` recomputes each layer
+in the backward (``torch.utils.checkpoint``).  Not yet ported, and
+refused rather than run differently: the mesh's ``dp`` and ``tp`` axes
+(ROADMAP A11) and MoE layers (A9).
 """
 
 from __future__ import annotations
@@ -32,10 +39,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from geomx_tpu_torch.core.platform import resolve_device
 from geomx_tpu_torch.ops.flash_attention import flash_attention
 from geomx_tpu_torch.parallel.ring_attention import (
-    dense_attention, fast_dense_attention)
+    dense_attention, fast_dense_attention, ring_attention)
+from geomx_tpu_torch.parallel.ulysses import ulysses_attention
 
 AUX_COEF = 0.01  # MoE load-balancing aux weight (the JAX package's)
 LAYER_KEYS = ("ln1", "ln2", "w1", "w2", "wk", "wo", "wq", "wv")
@@ -54,7 +64,7 @@ class TransformerConfig:
     moe_top_k: int = 0
     moe_capacity_factor: float = 1.25
     compute_dtype: torch.dtype = torch.bfloat16
-    sp_attn: str = "ring"    # "ring" | "ulysses" (multi-device only)
+    sp_attn: str = "ring"    # "ring" | "ulysses" (mesh with sp > 1 only)
     attn_impl: str = "fast"  # "fast" | "dense" | "flash"
     remat: bool = False
 
@@ -71,8 +81,51 @@ def _refuse_unported(cfg: TransformerConfig) -> None:
     if cfg.moe_every > 0:
         raise NotImplementedError(
             "MoE layers (moe_every > 0) are not ported yet")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
+
+
+def _sp_size(mesh) -> int:
+    """The mesh's ``sp`` size (1 without a mesh).  The mesh must name
+    ``dp``, ``sp`` and ``tp`` (the JAX package shards activations as
+    ``P("dp", "sp", "tp", None)``); ``dp`` and ``tp`` must be 1."""
+    if mesh is None:
+        return 1
+    missing = [a for a in ("dp", "sp", "tp") if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"the mesh must name the axes dp, sp and tp "
+                         f"(missing {missing}): {mesh.shape}")
+    for axis in ("dp", "tp"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"a mesh with {axis} > 1 is not ported yet (ROADMAP A11): "
+                f"{mesh.shape}")
+    return mesh.shape["sp"]
+
+
+def _sp_attention(cfg: TransformerConfig, mesh, q, k, v):
+    """Causal attention over the mesh's ``sp`` axis: q, k, v split into
+    contiguous sequence shards, one on each rank's device, attention per
+    ``cfg.sp_attn``, and the shards joined on rank 0's device."""
+    n = mesh.shape["sp"]
+    T = q.shape[1]
+    if T % n != 0:
+        raise ValueError(f"sequence length {T} is not divisible by the "
+                         f"'sp' axis size {n}")
+    devs = mesh.axis_devices("sp")
+    t = T // n
+
+    def split(x):
+        return [x[:, r * t:(r + 1) * t].to(devs[r]) for r in range(n)]
+
+    if cfg.sp_attn == "ulysses":
+        outs = ulysses_attention(split(q), split(k), split(v), mesh,
+                                 causal=True,
+                                 fast=cfg.attn_impl != "dense")
+    else:
+        fast = ("flash" if cfg.attn_impl == "flash"
+                else cfg.attn_impl != "dense")
+        outs = ring_attention(split(q), split(k), split(v), mesh,
+                              causal=True, fast=fast)
+    return torch.cat([o.to(devs[0]) for o in outs], dim=1).to(q.device)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -147,18 +200,24 @@ def _layer_forward(cfg: TransformerConfig, i: int, layer: Dict, x,
 def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
     """The forward ``apply(params, tokens [B, T] int) -> logits [B, T, V]
     f32`` (``(logits, aux)`` with ``return_aux``).  ``params`` is keyed
-    like :func:`init_params`.  Raises NotImplementedError on a mesh,
-    ``remat`` and MoE layers."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (sequence/tensor-parallel) attention is not ported yet")
+    like :func:`init_params`.  With a ``mesh`` (naming ``dp``, ``sp``
+    and ``tp``) whose ``sp`` is larger than 1, attention runs sequence
+    parallel over it; ``sp == 1`` is the single-device path.  Raises
+    NotImplementedError on ``dp``/``tp`` larger than 1 and on MoE
+    layers."""
     _refuse_unported(cfg)
     if cfg.sp_attn not in ("ring", "ulysses"):
         raise ValueError(
             f"sp_attn must be 'ring' or 'ulysses', got {cfg.sp_attn!r}")
+    use_sp = _sp_size(mesh) > 1
 
     def attn_op(q, k, v):
+        if use_sp:
+            return _sp_attention(cfg, mesh, q, k, v)
         return _single_device_attention(cfg, q, k, v)
+
+    def layer_fn(layer, x, i):
+        return _layer_forward(cfg, i, layer, x, attn_op)
 
     def apply(params: Dict[str, torch.Tensor], tokens: torch.Tensor):
         cd = cfg.compute_dtype
@@ -168,7 +227,12 @@ def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             layer = {n: params[f"layers.{i}.{n}"] for n in LAYER_KEYS}
-            x, aux = _layer_forward(cfg, i, layer, x, attn_op)
+            if cfg.remat:
+                # recompute the layer in the backward, as jax.checkpoint
+                x, aux = checkpoint(layer_fn, layer, x, i,
+                                    use_reentrant=False)
+            else:
+                x, aux = layer_fn(layer, x, i)
             aux_total = aux_total + aux
         x = _rms_norm(x, params["ln_f"])
         # the tied head runs in the compute dtype, then goes to f32
@@ -192,13 +256,13 @@ def lm_loss(apply_fn: Callable, params, tokens) -> torch.Tensor:
     return token_cross_entropy(apply_fn(params, tokens), tokens)
 
 
-def make_lm_grad_fn(cfg: TransformerConfig) -> Callable:
+def make_lm_grad_fn(cfg: TransformerConfig, mesh=None) -> Callable:
     """``grad_fn(params, x, y) -> (loss, acc, grads)`` with the worker
     loop's signature (``training.run_worker``); ``y`` is ignored (the LM
     objective shifts ``x``).  ``x`` may be a numpy array; it moves to
-    the parameters' device.  Safe to call from several worker threads
-    at once (pure in ``params``)."""
-    apply_fn = make_apply(cfg)
+    the parameters' device.  ``mesh`` as in :func:`make_apply`.  Safe to
+    call from several worker threads at once (pure in ``params``)."""
+    apply_fn = make_apply(cfg, mesh)
 
     def grad_fn(params: Dict[str, torch.Tensor], x, _y=None):
         dev = next(iter(params.values())).device

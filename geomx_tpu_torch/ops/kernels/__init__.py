@@ -1,1 +1,2 @@
-"""Hand-written GPU kernels (Triton), built at their first launch."""
+"""Hand-written GPU kernels (Triton, and CUDA C++ bound with ctypes),
+built at their first launch."""

@@ -4,7 +4,7 @@
 The source is compiled with ``nvcc`` for ``sm_90a`` at the first launch
 into ``geomx_tpu_torch/.kernel_cache/libflash_attention.so`` (rebuilt
 when the source is newer), under a file lock and into a temporary name
-moved onto the library (:func:`geomx_tpu_torch.utils.build.locked_build`),
+moved onto the library (:class:`geomx_tpu_torch.utils.build.NvccLibrary`),
 so concurrent first launches build once.  ``nvcc`` is found through
 ``CUDA_HOME``, ``PATH`` or the toolkit's default prefix; without it the
 first launch raises.  Nothing is built or loaded when this module is
@@ -24,32 +24,21 @@ if the launch reports a CUDA error.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-from geomx_tpu_torch.utils.build import locked_build
+from geomx_tpu_torch.utils.build import NvccLibrary
 
 PKG = Path(__file__).resolve().parents[2]
-SOURCE = PKG / "csrc" / "flash_attention.cu"
 KERNEL_CACHE = PKG / ".kernel_cache"
-LIBRARY = KERNEL_CACHE / "libflash_attention.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
 _mu = threading.Lock()
-_lib = None
-# what ptxas said of each kernel (registers, shared memory, spills)
-BUILD_LOG = ""
 
 
 def reset_launches() -> None:
@@ -63,58 +52,26 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
-def find_nvcc() -> str:
-    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
-    toolkit's default prefix; raises RuntimeError when none exists."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    on_path = shutil.which("nvcc")
-    if on_path:
-        cands.append(on_path)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
-                       "the flash-attention kernels cannot be built")
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    lib.geo_flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, ll, ll, ll,
+                                  f, p]
+    lib.geo_flash_fwd.restype = i
+    lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i,
+                                  i, ll, ll, ll, f, p]
+    lib.geo_flash_bwd.restype = i
 
 
-def _stale() -> bool:
-    try:
-        return LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime
-    except FileNotFoundError:
-        return True
-
-
-def _compile(out: str) -> None:
-    global BUILD_LOG
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", out, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    BUILD_LOG = res.stderr
+# built with nvcc at the first launch; LIB.log keeps what ptxas said
+LIB = NvccLibrary(PKG / "csrc" / "flash_attention.cu",
+                  KERNEL_CACHE / "libflash_attention.so", _bind)
 
 
 def library() -> ctypes.CDLL:
     """The kernels' library: built with nvcc if missing or older than
     the source, loaded once per process."""
-    global _lib
-    if _lib is None:
-        with _mu:
-            if _lib is None:
-                locked_build(str(LIBRARY), _stale, _compile)
-                lib = ctypes.CDLL(str(LIBRARY))
-                p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_longlong, ctypes.c_float)
-                lib.geo_flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i,
-                                              ll, ll, ll, f, p]
-                lib.geo_flash_fwd.restype = i
-                lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p,
-                                              p, p, i, i, i, ll, ll, ll, f, p]
-                lib.geo_flash_bwd.restype = i
-                _lib = lib
-    return _lib
+    return LIB.load()
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:

@@ -1,4 +1,5 @@
-"""Build a shared library at first use, safely across processes.
+"""Build a shared library at first use, safely across processes, and
+the nvcc build of the port's CUDA sources on top of it.
 
 Several processes (test workers, the worker threads' first calls in
 different interpreters) may find a library missing or stale at once.
@@ -11,9 +12,13 @@ library, so no process ever opens a half-written file.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import os
+import shutil
+import subprocess
 import tempfile
+import threading
 from typing import Callable
 
 
@@ -44,3 +49,69 @@ def locked_build(target: str, stale: Callable[[], bool],
                     os.unlink(tmp)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+# ---- CUDA sources built with nvcc into a ctypes library ------------------
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
+    toolkit's default prefix; raises RuntimeError when none exists."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels cannot be built")
+
+
+class NvccLibrary:
+    """One ``.cu`` source compiled with ``nvcc`` for ``sm_90a`` into a
+    shared library at its first :meth:`load` (rebuilt when the source is
+    newer, under :func:`locked_build`), loaded once per process with
+    ctypes; ``bind(lib)`` sets the entry points' ``argtypes``.  ``log``
+    keeps what ptxas said of each kernel (registers, shared memory,
+    spills) when this process built it."""
+
+    def __init__(self, source: str, library: str,
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.source, self.library = str(source), str(library)
+        self._bind = bind
+        self._lib = None
+        self._mu = threading.Lock()
+        self.log = ""
+
+    def _stale(self) -> bool:
+        try:
+            return os.stat(self.library).st_mtime < \
+                os.stat(self.source).st_mtime
+        except FileNotFoundError:
+            return True
+
+    def _compile(self, out: str) -> None:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", out, self.source]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stderr[-4000:]}")
+        self.log = res.stderr
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            with self._mu:
+                if self._lib is None:
+                    locked_build(self.library, self._stale, self._compile)
+                    lib = ctypes.CDLL(self.library)
+                    self._bind(lib)
+                    self._lib = lib
+        return self._lib

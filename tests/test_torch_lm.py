@@ -153,11 +153,14 @@ def test_bf16_compute_runs_flash_and_keeps_f32_params():
 
 
 def test_unported_paths_raise():
+    from geomx_tpu_torch.parallel import make_mesh
+
     _, cfg = _cfgs("fast")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.make_apply(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="remat"):
-        T.make_apply(T.TransformerConfig(**WIDTHS, remat=True))
+    # the mesh's sp axis is ported (tests/test_torch_sp.py); dp and tp
+    # are not
+    for axes in ({"dp": 2, "sp": 2, "tp": 1}, {"dp": 1, "sp": 1, "tp": 2}):
+        with pytest.raises(NotImplementedError, match="A11"):
+            T.make_apply(cfg, mesh=make_mesh(axes, devices=["cpu"] * 4))
     with pytest.raises(NotImplementedError, match="MoE"):
         T.make_apply(T.TransformerConfig(**WIDTHS, moe_every=2))
     with pytest.raises(ValueError, match="attn_impl"):
