@@ -14,13 +14,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    update bitwise too (tolerance: none), at 1, 4097, 401,408 (the CNN's
    largest leaf) and 50,000,000 elements; then CUDA-event times;
 3. flash attention — the CUDA forward and backward kernels (built with
-   ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``) against their
-   plain versions in bf16 and f32 at (B,T,H,Dh) = (8,128,6,64) (the
-   flagship LM), (4,2048,16,128) (the MFU config), (2,1000,3,64) (a
-   ragged tail) and (1,1,1,64); tolerance f32 1e-4, bf16 2e-2, each
-   times max(1, largest reference entry); CUDA-event times of kernel,
-   plain version and ``scaled_dot_product_attention`` (a yardstick
-   only, never on the port's path), each beside its bound;
+   ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
+   tensor cores, f32 on FMAs) against their plain versions in bf16 and
+   f32 at (B,T,H,Dh) = (8,128,6,64) (the flagship LM), (4,2048,16,128)
+   (the MFU config), (2,1000,3,64) (a ragged tail), (1,2047,2,128) (T
+   not a multiple of the 128-row tile), (1,1500,24,128) (the same on
+   the two-warpgroup tiles, which the bf16 kernels take when 128-row
+   tiles fill the SMs), (2,100,3,64) (T below one tile) and (1,1,1,64);
+   tolerance f32 1e-4, bf16 2e-2, each times max(1, largest reference
+   entry), and each of o, lse, dq, dk, dv within a relative L2 of f32
+   1e-4, bf16 1e-2; in bf16 at Dh 128 the kernel's gradients must lie
+   nearer the plain backward (which rounds p and ds*scale where JAX's
+   kernel does) than the unrounded one; the ptxas log must show no
+   spill in a tensor-core kernel; CUDA-event times of kernel, plain version
+   and ``scaled_dot_product_attention`` (a yardstick only, never on the
+   port's path), each beside its bound, and at the LM's and the MFU
+   shape in bf16 each kernel's device time a call (``torch.profiler``
+   over 10 calls);
 3b. block attention — the CUDA kernel of a ring hop's partial block
    (``geomx_tpu_torch/csrc/block_attention.cu``) against its plain
    version in bf16 and f32, for the three hop geometries (diagonal
@@ -38,7 +48,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
    ``attn_impl="flash"`` and again with ``"dense"`` (and ``"fast"``,
    which rounds the probabilities as flash does): losses within 1e-3
-   relative, every leaf's gradient within 5e-2 relative L2;
+   relative, every leaf's gradient within 5e-2 relative L2; the flash
+   and dense steps then run three more times each, and their warm walls
+   are kept;
 4b. the sequence-parallel step — the same weights and tokens through
    ``make_apply(cfg, mesh)`` on ``make_mesh({"dp": 1, "sp": 4, "tp": 1},
    devices=[card] * 4)`` with ring attention and ``attn_impl="flash"``
@@ -92,11 +104,19 @@ THRESHOLD = 0.5
 MOMENTUM = 0.9
 STEPS = 12
 # flash attention: (B, T, H, Dh) of the flagship LM (the main path),
-# the MFU config, a ragged tail and one token
+# the MFU config, a ragged tail, T off the 128-row tile, T off it with
+# enough (b, h) for the bf16 kernels' two-warpgroup tiles, T below one
+# tile, and one token
 FLASH_SHAPES = ((8, 128, 6, 64), (4, 2048, 16, 128), (2, 1000, 3, 64),
+                (1, 2047, 2, 128), (1, 1500, 24, 128), (2, 100, 3, 64),
                 (1, 1, 1, 64))
 FLASH_MAIN = ((8, 128, 6, 64), "bfloat16")
+FLASH_MFU = ((4, 2048, 16, 128), "bfloat16")   # also in the kernel rows
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# relative L2 of each output (o, lse, dq, dk, dv), a second gate beside
+# the largest error: it sees an error spread over many entries that stays
+# below the max-abs allowance entry by entry
+FLASH_REL_L2 = {"float32": 1e-4, "bfloat16": 1e-2}
 MFU_WIDTHS = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=8,
                   d_ff=8192, max_seq=2048)     # bench.py MFU_CFG
 MFU_BATCH = 4
@@ -327,6 +347,36 @@ def _bound(flops: float, nbytes: float, dtype: str):
                                  else "bytes")
 
 
+def _rel_l2(got, ref) -> float:
+    """||got - ref|| / ||ref||, the denominator held at least at an rms of
+    1e-2 (at T = 1 the gradients of q and k are rounding noise about 0,
+    where the typical rms is 0.08-0.3)."""
+    floor = 1e-2 * math.sqrt(max(ref.numel(), 1))
+    return float((got.double() - ref.double()).norm()
+                 / max(float(ref.double().norm()), floor))
+
+
+def _flash_bwd_unrounded(q, k, v, o, lse, do, sm_scale):
+    """The plain backward as it stood before it rounded where JAX's
+    kernel rounds: ``p`` and ``ds`` kept in f32, dK and dQ scaled after
+    the product.  A control: the bf16 kernel must lie nearer the
+    rounding plain version than this one."""
+    import torch
+
+    from geomx_tpu_torch.ops import flash_attention as FA
+
+    s = FA._scores(q, k, sm_scale)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def check_flash(dev) -> dict:
     """Each flash kernel against its plain version at every shape and
     dtype, then CUDA-event times of kernel, plain version and SDPA."""
@@ -338,6 +388,8 @@ def check_flash(dev) -> dict:
 
     ptx = _ptxas(FK.LIB)
     log(f"flash kernels: ptxas: {'; '.join(ptx)}")
+    spills = _spilling(FK.LIB.log, "_tc_kernel")
+    assert not spills, f"tensor-core flash kernels spill: {spills}"
     out = {"ptxas": ptx, "by_shape": {}}
     for shape in FLASH_SHAPES:
         for dt in ("float32", "bfloat16"):
@@ -364,29 +416,69 @@ def check_flash(dev) -> dict:
                 assert err[name] <= tol[name], (
                     f"{name} {shape} {dt}: max abs err {err[name]} > "
                     f"{tol[name]}")
+            rel = {n: _rel_l2(g, r) for n, g, r in zip(
+                ("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                (ro, rlse, *refs))}
+            assert max(rel.values()) <= FLASH_REL_L2[dt], (
+                f"flash {shape} {dt}: relative L2 {rel} > "
+                f"{FLASH_REL_L2[dt]}")
+            control = None
+            if dt == "bfloat16" and shape[-1] == 128:
+                # where the kernel rounds: 1/sqrt(128) is not a power of
+                # two, so rounding ds*scale and scaling after differ too
+                unr = _flash_bwd_unrounded(q, k, v, o, lse, do, scale)
+                control = {n: _rel_l2(g, u) for n, g, u in zip(
+                    ("dq", "dk", "dv"), grads, unr)}
+                for n in control:
+                    assert rel[n] < control[n], (
+                        f"flash {shape} bf16 d{n[1]}: rel L2 {rel[n]:.3e} to "
+                        f"the rounding plain version, not below "
+                        f"{control[n]:.3e} to the unrounded one")
+                del unr
+            log(f"flash {shape} {dt}: rel L2 o/lse/dq/dk/dv "
+                + "/".join(f"{rel[n]:.3g}" for n in rel)
+                + f" (gate {FLASH_REL_L2[dt]:g})"
+                + ("" if control is None else
+                   "; dq/dk/dv to the unrounded backward "
+                   + "/".join(f"{control[n]:.3g}" for n in control)))
             # SDPA, the library yardstick: [B, H, T, Dh]
             sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))
             so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
             sdo = do.transpose(1, 2).contiguous()
-            it = 5 if shape[1] >= 2048 else 50
+            # the plain version takes 10-20 ms a call at the MFU shape
+            it, plain_it = 50, (5 if shape[1] >= 2048 else 50)
             times = {
                 "flash_fwd": (
                     _time_ms(lambda: FK.flash_fwd(q, k, v, scale), it),
                     _time_ms(lambda: FA.flash_attention_ref(q, k, v, scale),
-                             it),
+                             plain_it),
                     _time_ms(lambda: F.scaled_dot_product_attention(
                         sq, sk, sv, is_causal=True), it)),
                 "flash_bwd": (
                     _time_ms(lambda: FK.flash_bwd(q, k, v, o, lse, do,
                                                   scale), it),
                     _time_ms(lambda: FA.flash_attention_bwd_ref(
-                        q, k, v, o, lse, do, scale), it),
+                        q, k, v, o, lse, do, scale), plain_it),
                     _time_ms(lambda: torch.autograd.grad(
                         so, (sq, sk, sv), sdo, retain_graph=True), it)),
             }
             costs = flash_costs(shape, dt)
-            rec = {}
+            rec = {"rel_l2": rel, "rel_l2_to_unrounded": control}
+            if (shape, dt) in (FLASH_MAIN, FLASH_MFU):
+                # device time by kernel a call, over 10 calls (a one-call
+                # window can lose records): the event times at the LM's
+                # shape are mostly the host's launch path
+                for name, fn in (
+                        ("flash_fwd", lambda: FK.flash_fwd(q, k, v, scale)),
+                        ("flash_bwd", lambda: FK.flash_bwd(q, k, v, o, lse,
+                                                           do, scale))):
+                    by = {n: t / 10 for n, t in _device_ms_by_kernel(
+                        lambda: [fn() for _ in range(10)]).items()}
+                    rec[f"{name}_device_ms"] = by
+                    log(f"flash {name} {shape} {dt}: device ms by kernel "
+                        + "; ".join(f"{n[:40]} {t:.4f}"
+                                    for n, t in by.items()))
             for name, (ms, plain_ms, lib_ms) in times.items():
                 flops, nbytes = costs[name]
                 bound_ms, bound_by = _bound(flops, nbytes, dt)
@@ -432,6 +524,21 @@ def start_cuda_builds():
 def _ptxas(lib) -> list:
     return [ln.strip() for ln in lib.log.splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def _spilling(log: str, marker: str) -> list:
+    """The kernels whose mangled name holds ``marker`` and for which
+    ptxas reported spill stores, from the library's ptxas log."""
+    assert "Compiling entry function" in log, \
+        "no ptxas log of the library: remove its cached build to rebuild"
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif "bytes spill stores" in ln and name and marker in name:
+            if not ln.strip().split(", ")[1].startswith("0 bytes"):
+                out.append(name)
+    return out
 
 
 # ---- phase 3b: block attention against its plain version ---------------
@@ -570,8 +677,16 @@ def check_full_width_step(dev) -> tuple:
         torch.cuda.synchronize()
         return float(loss), grads, time.perf_counter() - t0
 
+    def warm_walls(impl):
+        """The walls of three more steps, after one that warmed the
+        allocator and the libraries (a single wall varies several-fold
+        with the host)."""
+        return [step(impl)[2] for _ in range(3)]
+
     lf, gf, tf = step("flash")
-    out = {"n_params": n_params, "loss_flash": lf, "wall_s_flash": tf}
+    tf_warm = warm_walls("flash")
+    out = {"n_params": n_params, "loss_flash": lf, "wall_s_flash": tf,
+           "warm_walls_s_flash": tf_warm}
     refs = {"cfg": cfg, "params": params, "tokens": tokens}
     # dense is the reference the tolerance holds; fast rounds p to bf16
     # before the PV product as flash does, so it shows how much of the
@@ -590,6 +705,12 @@ def check_full_width_step(dev) -> tuple:
         out[impl] = {"loss": lo, "rel_loss": rel_loss, "grad_rel_l2": rel,
                      "wall_s": to}
         refs[impl] = (lo, go)
+    out["dense"]["warm_walls_s"] = warm_walls("dense")
+    log(f"full-width step warm walls (s): flash "
+        f"{[round(w, 4) for w in tf_warm]} (median "
+        f"{float(np.median(tf_warm)):.4f}), dense "
+        f"{[round(w, 4) for w in out['dense']['warm_walls_s']]} (median "
+        f"{float(np.median(out['dense']['warm_walls_s'])):.4f})")
     del gf
     torch.cuda.empty_cache()
     return out, refs
@@ -1017,7 +1138,14 @@ def main() -> int:
             # the error over every shape and dtype checked
             t = dict(t, max_abs_err=max(
                 r[name]["max_abs_err"] for r in flash["by_shape"].values()))
-            where = {"shape": list(main_shape), "dtype": main_dt}
+            mfu_shape, mfu_dt = FLASH_MFU
+            m = flash["by_shape"][f"{mfu_shape} {mfu_dt}"][name]
+            where = {"shape": list(main_shape), "dtype": main_dt,
+                     "at_mfu_shape": {
+                         "shape": list(mfu_shape), "dtype": mfu_dt,
+                         **{key: m[key] for key in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "tflop_per_s")}}}
         rows.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -36,7 +36,8 @@ import sys
 
 CODEC_KERNELS = ("_quant_kernel", "_dequant_kernel", "_dgc_kernel")
 FLASH_KERNELS = ("fwd_kernel<", "delta_kernel<", "dkdv_kernel<",
-                 "dq_kernel<")
+                 "dq_kernel<", "fwd_tc_kernel<", "dkdv_tc_kernel<",
+                 "dq_tc_kernel<")
 # the flagship LM (training.build_flagship_lm's widths), as chip_smoke.py
 # drives it
 LM_FLAGS = ["--vocab", "8192", "--d-model", "384", "--layers", "4",

@@ -14,14 +14,20 @@ A CUDA tensor goes to the hand kernels
 their launch counts), a CPU tensor to the plain versions here; there is
 no fallback between the two.
 
-Numerics, shared by the kernels and the plain versions: scores in f32
-from the input operands, masked scores excluded from the softmax, ``lse``
-f32 ``[B, H, T]``; in the forward the probabilities are rounded to the
+Numerics, shared by the kernels and the plain versions, and those of
+JAX's kernel: scores in f32 from the input operands, masked scores
+excluded from the softmax, ``lse`` f32 ``[B, H, T]``, every product
+accumulated in f32.  In the forward the probabilities are rounded to the
 input dtype before the PV product (as ``fast_dense_attention`` rounds
-them), the backward recomputes them in f32 from ``lse`` and keeps every
-product in f32.  The kernel rounds the running (unnormalised) ``p`` and
-divides by the row sum at the end, the plain version rounds the
-normalised ``p``: in bf16 the two differ by about one bf16 ulp of ``o``.
+them); the kernel rounds the running (unnormalised) ``p`` and divides by
+the row sum at the end, as JAX's kernel does, the plain version rounds
+the normalised ``p``: in bf16 the two differ by about one bf16 ulp of
+``o``.  The backward recomputes ``p = exp(s - lse)`` in f32, rounds it
+to the input dtype before ``dv = p^T do`` (JAX's ``flash_attention.py``
+:900), and rounds ``ds * sm_scale``, ``ds = p * (dp - delta)``, before
+``dk = ds^T q`` and ``dq = ds k`` (:911-918, :1243-1261); ``dk`` and
+``dq`` take no scale after the product.  In f32 the roundings are the
+identity.
 """
 
 from __future__ import annotations
@@ -68,16 +74,18 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                                        torch.Tensor]:
     """Plain backward of :func:`flash_attention_ref`: ``(dq, dk, dv)`` in
     q's dtype, with ``p = exp(s - lse)`` recomputed in f32 and
-    ``delta = rowsum(do * o)``."""
+    ``delta = rowsum(do * o)``; ``p`` and ``ds * sm_scale`` are rounded
+    to q's dtype before the products they feed, as in JAX's kernel."""
     s = _scores(q, k, sm_scale)
     p = torch.exp(s - lse[..., None])      # masked entries underflow to 0
     dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     delta = (dof * o.float()).sum(-1).transpose(1, 2)   # [B, H, T]
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * sm_scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm_scale
+    ds = (dp - delta[..., None]) * p
+    ds = (ds * sm_scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

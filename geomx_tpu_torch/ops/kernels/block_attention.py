@@ -4,8 +4,9 @@
 The source is compiled with ``nvcc`` for ``sm_90a`` at the first launch
 into ``geomx_tpu_torch/.kernel_cache/libblock_attention.so`` by
 :class:`geomx_tpu_torch.utils.build.NvccLibrary` (under a file lock,
-rebuilt when the source is newer); nothing is built or loaded when this
-module is imported, so the CPU tests can import it.
+rebuilt when the source or a ``csrc/*.cuh`` header is newer); nothing is
+built or loaded when this module is imported, so the CPU tests can
+import it.
 
 :func:`block_attn_fwd` checks device, dtype, shape and contiguity,
 allocates ``m``, ``l`` and ``o`` with ``torch.empty``, launches on the

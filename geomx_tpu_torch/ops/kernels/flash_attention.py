@@ -1,11 +1,13 @@
 """ctypes binding of the CUDA flash-attention kernels
 (``geomx_tpu_torch/csrc/flash_attention.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` at the first launch
-into ``geomx_tpu_torch/.kernel_cache/libflash_attention.so`` (rebuilt
-when the source is newer), under a file lock and into a temporary name
-moved onto the library (:class:`geomx_tpu_torch.utils.build.NvccLibrary`),
-so concurrent first launches build once.  ``nvcc`` is found through
+The source (and ``csrc/hopper_tiles.cuh``, which it includes) is
+compiled with ``nvcc`` for ``sm_90a`` at the first launch into
+``geomx_tpu_torch/.kernel_cache/libflash_attention.so`` (rebuilt when
+the source or a ``csrc/*.cuh`` header is newer), under a file lock and
+into a temporary name moved onto the library
+(:class:`geomx_tpu_torch.utils.build.NvccLibrary`), so concurrent first
+launches build once.  ``nvcc`` is found through
 ``CUDA_HOME``, ``PATH`` or the toolkit's default prefix; without it the
 first launch raises.  Nothing is built or loaded when this module is
 imported, so the CPU tests can import it.
@@ -16,7 +18,8 @@ Two launchers, each counting its launches in :data:`LAUNCHES`:
 - :func:`flash_bwd` runs the three backward kernels (delta, dK/dV, dQ)
   in one call: ``(dq, dk, dv)``.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates every
+Each wrapper checks device, dtype, shape, contiguity and (bf16, whose
+kernels read through TMA) 16-byte alignment, allocates every
 output with ``torch.empty``, launches on the current stream and raises
 if the launch reports a CUDA error.
 """
@@ -70,7 +73,7 @@ LIB = NvccLibrary(PKG / "csrc" / "flash_attention.cu",
 
 def library() -> ctypes.CDLL:
     """The kernels' library: built with nvcc if missing or older than
-    the source, loaded once per process."""
+    the source or a header beside it, loaded once per process."""
     return LIB.load()
 
 
@@ -103,6 +106,14 @@ def _check_q(q: torch.Tensor) -> Tuple[int, int, int, int]:
     return B, T, H, D
 
 
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """bf16 runs on TMA, whose tensor maps need 16-byte aligned bases."""
+    for t in ts:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("bf16 flash attention needs 16-byte aligned "
+                             f"tensors (got address {t.data_ptr():#x})")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -119,6 +130,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, H, D = _check_q(q)
     _check("k", k, q)
     _check("v", v, q)
+    _check_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -146,6 +158,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(name, t, q)
     want = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _check("lse", lse, want)
+    _check_aligned(q, k, v, o, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv

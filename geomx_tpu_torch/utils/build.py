@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import os
 import shutil
 import subprocess
@@ -76,11 +77,13 @@ def find_nvcc() -> str:
 
 class NvccLibrary:
     """One ``.cu`` source compiled with ``nvcc`` for ``sm_90a`` into a
-    shared library at its first :meth:`load` (rebuilt when the source is
-    newer, under :func:`locked_build`), loaded once per process with
-    ctypes; ``bind(lib)`` sets the entry points' ``argtypes``.  ``log``
-    keeps what ptxas said of each kernel (registers, shared memory,
-    spills) when this process built it."""
+    shared library at its first :meth:`load` (rebuilt when the source or
+    a ``.cuh`` header beside it is newer, under :func:`locked_build`),
+    loaded once per process with ctypes; ``bind(lib)`` sets the entry
+    points' ``argtypes``.  ``log`` holds what ptxas said of each kernel
+    (registers, shared memory, spills) at the library's build, kept in
+    ``library + ".ptxas"`` so a process that loads a cached library reads
+    it too."""
 
     def __init__(self, source: str, library: str,
                  bind: Callable[[ctypes.CDLL], None]):
@@ -90,10 +93,16 @@ class NvccLibrary:
         self._mu = threading.Lock()
         self.log = ""
 
-    def _stale(self) -> bool:
+    def inputs(self) -> list:
+        """The source and the headers beside it, which it may include."""
+        d = os.path.dirname(self.source)
+        return [self.source, *sorted(glob.glob(os.path.join(d, "*.cuh")))]
+
+    def stale(self) -> bool:
+        """True when the library is missing or older than an input."""
         try:
-            return os.stat(self.library).st_mtime < \
-                os.stat(self.source).st_mtime
+            built = os.stat(self.library).st_mtime
+            return any(built < os.stat(f).st_mtime for f in self.inputs())
         except FileNotFoundError:
             return True
 
@@ -104,13 +113,19 @@ class NvccLibrary:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stderr[-4000:]}")
-        self.log = res.stderr
+        with open(self.library + ".ptxas", "w") as f:
+            f.write(res.stderr)
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
             with self._mu:
                 if self._lib is None:
-                    locked_build(self.library, self._stale, self._compile)
+                    locked_build(self.library, self.stale, self._compile)
+                    try:
+                        with open(self.library + ".ptxas") as f:
+                            self.log = f.read()
+                    except FileNotFoundError:
+                        self.log = ""
                     lib = ctypes.CDLL(self.library)
                     self._bind(lib)
                     self._lib = lib

@@ -67,3 +67,74 @@ def test_concurrent_first_loads_all_find_the_library(fresh_native):
                   if f.name.startswith(".libgeocodecs"))
     assert left == [], left
     assert (fresh_native / "libgeocodecs.so").stat().st_size > 0
+
+
+def test_nvcc_library_is_stale_when_an_included_header_is_newer(tmp_path):
+    """A CUDA library rebuilds when a header beside its source changes,
+    and not otherwise (a stub stands in for nvcc)."""
+    from geomx_tpu_torch.utils.build import NvccLibrary, locked_build
+
+    (tmp_path / "tiles.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// innermost\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda.h>\n#include "tiles.cuh"\n')
+    lib = NvccLibrary(src, tmp_path / "cache" / "libk.so", lambda _: None)
+    builds = []
+
+    def compile_to(out):
+        builds.append(out)
+        pathlib.Path(out).write_bytes(b"lib")
+
+    def build_at(t):
+        locked_build(lib.library, lib.stale, compile_to)
+        os.utime(lib.library, (t, t))
+
+    for f in ("k.cu", "tiles.cuh", "inner.cuh"):
+        os.utime(tmp_path / f, (1000, 1000))
+    build_at(2000)
+    assert len(builds) == 1
+    locked_build(lib.library, lib.stale, compile_to)   # nothing touched
+    assert len(builds) == 1
+    for n, f in enumerate(("tiles.cuh", "inner.cuh", "k.cu")):
+        t = 3000 + 1000 * n                            # touch one file
+        os.utime(tmp_path / f, (t, t))
+        assert lib.stale(), f
+        build_at(t + 500)
+        assert len(builds) == 2 + n
+        assert not lib.stale()
+
+
+def test_nvcc_library_keeps_the_ptxas_log_beside_the_library(
+        tmp_path, monkeypatch):
+    """The ptxas report of a build reaches a process that loads the
+    cached library without building it (a script stands in for nvcc)."""
+    import ctypes
+
+    from geomx_tpu_torch.utils.build import NvccLibrary
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\n"
+                    "echo \"ptxas info    : Used 40 registers\" >&2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: path)
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    built = NvccLibrary(src, tmp_path / "cache" / "libk.so", lambda _: None)
+    assert built.load() == built.library
+    assert "Used 40 registers" in built.log
+    cached = NvccLibrary(src, built.library, lambda _: None)
+    assert not cached.stale()
+    cached.load()
+    assert cached.log == built.log
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "block_attention"])
+def test_port_libraries_watch_the_tile_header(module):
+    import importlib
+
+    mod = importlib.import_module(f"geomx_tpu_torch.ops.kernels.{module}")
+    csrc = ROOT / "geomx_tpu_torch" / "csrc"
+    assert mod.LIB.inputs()[0] == str(csrc / f"{module}.cu")
+    assert str(csrc / "hopper_tiles.cuh") in mod.LIB.inputs()
