@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    on the card: 2-bit quantize and dequantize in both layouts compared
    bitwise (inputs hold signed zeros and values exactly at ±t), the DGC
    update bitwise too (tolerance: none), at 1, 4097, 401,408 (the CNN's
-   largest leaf) and 50,000,000 elements; then CUDA-event times;
+   largest leaf) and 50,000,000 elements; then CUDA-event times, and at
+   401,408 each kernel's device time a call (``torch.profiler`` over 10
+   calls);
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
    tensor cores, f32 on FMAs) against their plain versions in bf16 and
@@ -32,17 +34,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    shape in bf16 each kernel's device time a call (``torch.profiler``
    over 10 calls);
 3b. block attention — the CUDA kernel of a ring hop's partial block
-   (``geomx_tpu_torch/csrc/block_attention.cu``) against its plain
-   version in bf16 and f32, for the three hop geometries (diagonal
-   ``(0, 0)``, below ``(T, 0)``, above ``(0, T)``) and non-causal, at
-   (B,T,H,D) = (4,512,16,128) (the MFU config's hop at sp = 4: the main
-   path), (8,32,6,64) (the flagship LM's at sp = 4), a ragged
-   (2,250,3,64) and (1,1,1,64); ``m``, ``l`` and ``o`` each within f32
-   1e-4 / bf16 2e-2 times max(1, its largest unmasked reference entry),
-   masked maxima exactly -1e30; CUDA-event times of kernel, plain
-   version and ``scaled_dot_product_attention`` on the same block and
-   mask (a yardstick only: it returns normalised ``o``), each beside its
-   bound;
+   (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 on the tensor
+   cores, f32 on FMAs) against its plain version in bf16 and f32, for
+   the three hop geometries (diagonal ``(0, 0)``, below ``(Tk, 0)``,
+   above ``(0, Tq)``), a block straddling the diagonal off the tile grid
+   ``(0, Tq//2 + 3)`` and non-causal, at (B,Tq,Tk,H,D) =
+   (4,512,512,16,128) (the MFU config's hop at sp = 4: the main path),
+   (8,32,32,6,64) (the flagship LM's at sp = 4), a ragged
+   (2,250,250,3,64), (1,1,1,1,64), and Tq != Tk both ways
+   (2,300,77,3,128), (1,70,400,2,64); ``m``, ``l`` and ``o`` each within
+   f32 1e-4 / bf16 2e-2 times max(1, its largest unmasked reference
+   entry) and within a relative L2 of 1e-4 / 1e-2, masked maxima exactly
+   -1e30 and the ``l`` of a fully masked row exactly Tk; the ptxas log
+   must show no spill in a tensor-core kernel; CUDA-event times of
+   kernel, plain version and ``scaled_dot_product_attention`` on the
+   same block and mask (a yardstick only: it returns normalised ``o``),
+   each beside its bound, and at the main shape in bf16 the kernel's
+   device time a call in each geometry; the bf16 kernel at the main
+   shape, "below", must take less event time than its plain version and
+   than 0.30 ms;
 4. full-width reference step — one forward and backward of the port's
    transformer at the MFU config's widths (d 2048, 16 heads, 8 layers,
    d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
@@ -61,7 +71,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    one forward with ``sp_attn="ulysses"`` against dense; then 3 Adam
    steps (lr 1e-3) on the repeated batch, whose loss must fall; the
    steps' wall times, and the last step's device time by kernel
-   (``torch.profiler``, the device's own entries only);
+   (``torch.profiler``, the device's own entries only), in which the
+   block kernels must show;
 5. reference check — a 2×2 geo-round of the port's Simulation with a
    shared dyadic gradient function, on the card (torch backend, kernels)
    and on the host (numpy backend, host codecs): weights bitwise equal
@@ -128,11 +139,16 @@ LM_ARGS = ["--parties", "2", "--workers", "2", "--global-servers", "1",
            "--lr", "3e-3", "--compression", "2bit", "--attn-impl", "flash",
            "--compute-dtype", "bfloat16", "--seed", "0"]
 LM_PARAMS = 10_276_224
-# block attention: (B, T, H, D) of the MFU config's ring hop at sp = 4
-# (the main path), the flagship LM's at sp = 4, a ragged tail, one token
-BLOCK_SHAPES = ((4, 512, 16, 128), (8, 32, 6, 64), (2, 250, 3, 64),
-                (1, 1, 1, 64))
-BLOCK_MAIN = ((4, 512, 16, 128), "bfloat16", "below")
+# block attention: (B, Tq, Tk, H, D) of the MFU config's ring hop at
+# sp = 4 (the main path), the flagship LM's at sp = 4, a ragged tail, one
+# token, and Tq != Tk both ways
+BLOCK_SHAPES = ((4, 512, 512, 16, 128), (8, 32, 32, 6, 64),
+                (2, 250, 250, 3, 64), (1, 1, 1, 1, 64),
+                (2, 300, 77, 3, 128), (1, 70, 400, 2, 64))
+BLOCK_MAIN = ((4, 512, 512, 16, 128), "bfloat16", "below")
+# the bf16 kernel at the main shape, "below", must beat its plain version
+# and this event time (ms)
+BLOCK_MAIN_MAX_MS = 0.30
 SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
 SP_ADAM_STEPS = 3
 
@@ -301,6 +317,19 @@ def time_kernels(dev, sizes, iters_for) -> dict:
             uu.add_(vv)
 
         dgc_inplace = _time_ms(inplace, it)
+        device = {}
+        if n == MAIN_N:
+            # device time a call (profiler, 10 calls): at this size the
+            # event time is mostly Triton's host launch path
+            for name, fn in (
+                    ("quantize_2bit", lambda: K.quantize_2bit(
+                        g, r, THRESHOLD, "consecutive")),
+                    ("dequantize_2bit", lambda: K.dequantize_2bit(
+                        packed, n, THRESHOLD, "consecutive")),
+                    ("dgc_update", lambda: K.dgc_update(v, r, g,
+                                                        MOMENTUM))):
+                by = _device_ms_by_kernel(lambda: [fn() for _ in range(10)])
+                device[name] = {k: t / 10 for k, t in by.items()}
         costs = kernel_costs(n)
         out[n] = {}
         for name, (ms, plain_ms) in row.items():
@@ -313,12 +342,19 @@ def time_kernels(dev, sizes, iters_for) -> dict:
                    "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
             if name == "dgc_update":
                 rec["torch_inplace_ms"] = dgc_inplace
+            if name in device:
+                rec["device_ms_by_kernel"] = device[name]
+                rec["device_ms"] = sum(device[name].values())
             out[n][name] = rec
             log(f"time n={n} {name}: kernel {ms:.4f} ms "
                 f"({rec['gb_per_s']:.1f} GB/s), plain {plain_ms:.4f} ms, "
                 f"bound {rec['bound_ms']:.4f} ms"
                 + (f", in-place torch {dgc_inplace:.4f} ms"
-                   if name == "dgc_update" else ""))
+                   if name == "dgc_update" else "")
+                + (f"; device {rec['device_ms']:.5f} ms a call ("
+                   + "; ".join(f"{k[:40]} {t:.5f}"
+                               for k, t in device[name].items()) + ")"
+                   if name in device else ""))
         del g, r, v, vv, uu, packed
         torch.cuda.empty_cache()
     return out
@@ -543,38 +579,46 @@ def _spilling(log: str, marker: str) -> list:
 
 # ---- phase 3b: block attention against its plain version ---------------
 
-def _geometries(T: int) -> dict:
-    """(q_off, k_off, causal) of each ring-hop geometry."""
-    return {"diagonal": (0, 0, True), "below": (T, 0, True),
-            "above": (0, T, True), "noncausal": (0, 0, False)}
+def _geometries(Tq: int, Tk: int) -> dict:
+    """(q_off, k_off, causal) of each ring-hop geometry, and a block that
+    straddles the diagonal off the tile grid: rows fully masked, partly
+    visible and mixed within one query tile."""
+    return {"diagonal": (0, 0, True), "below": (Tk, 0, True),
+            "above": (0, Tq, True), "straddle": (0, Tq // 2 + 3, True),
+            "noncausal": (0, 0, False)}
 
 
-def block_costs(shape, q_off: int, k_off: int, causal: bool,
-                dtype: str) -> tuple:
+def block_costs(Tq: int, Tk: int, B: int, H: int, D: int, q_off: int,
+                k_off: int, causal: bool, dtype: str) -> tuple:
     """(flops, bytes) the block's function needs: two products over the
     visible (query, key) pairs, and for each fully masked row the sum of
     v over its keys; q, k, v read once, m, l, o (f32) written once."""
-    B, T, H, D = shape
     es = 4 if dtype == "float32" else 2
-    i = q_off + np.arange(T)
+    i = q_off + np.arange(Tq)
     if causal:
-        vis = np.clip(i - k_off + 1, 0, T)
+        vis = np.clip(i - k_off + 1, 0, Tk)
     else:
-        vis = np.full(T, T)
+        vis = np.full(Tq, Tk)
     pairs = int(vis.sum()) * B * H
     masked_rows = int((vis == 0).sum()) * B * H
-    flops = 4 * D * pairs + T * D * masked_rows
-    nbytes = 3 * B * T * H * D * es + (2 * B * T * H + B * T * H * D) * 4
+    flops = 4 * D * pairs + Tk * D * masked_rows
+    nbytes = ((B * Tq + 2 * B * Tk) * H * D * es
+              + (2 * B * Tq * H + B * Tq * H * D) * 4)
     return flops, nbytes
 
 
-def _block_check(got, ref, tol: float) -> tuple:
-    """({output: error}, {output: allowance}) for m, l and o, each held
-    to ``tol`` times max(1, its largest unmasked reference entry); a
-    masked maximum (-1e30) must be exact."""
+def _block_check(got, ref, tol: float, rel_tol: float, Tk: int) -> tuple:
+    """({output: error}, {output: allowance}, {output: relative L2}) for
+    m, l and o, each held to ``tol`` times max(1, its largest unmasked
+    reference entry) and to a relative L2 of ``rel_tol`` over its
+    unmasked entries; a masked maximum (-1e30) must be exact, and the l
+    of a fully masked row exactly Tk."""
     import torch
 
-    errs, allows = {}, {}
+    dead = ref[0] <= -1e29
+    assert torch.equal(got[1][dead], torch.full_like(got[1][dead], Tk)), \
+        "l of a fully masked row is not Tk"
+    errs, allows, rels = {}, {}, {}
     for name, g, r in zip("mlo", got, ref):
         masked = r <= -1e29
         assert torch.equal(g[masked], r[masked]), f"{name}: masked rows"
@@ -582,15 +626,19 @@ def _block_check(got, ref, tol: float) -> tuple:
         allows[name] = tol * max(
             1.0, float(live.abs().max()) if live.numel() else 0.0)
         errs[name] = _max_abs(g[~masked], live)
+        rels[name] = _rel_l2(g[~masked], live)
         assert errs[name] <= allows[name], \
             f"{name}: max abs err {errs[name]} > {allows[name]}"
-    return errs, allows
+        assert rels[name] <= rel_tol, \
+            f"{name}: relative L2 {rels[name]} > {rel_tol}"
+    return errs, allows, rels
 
 
 def check_block(dev) -> dict:
     """The block kernel against its plain version at every shape, dtype
     and geometry, then CUDA-event times of kernel, plain version and SDPA
-    on the same block and mask."""
+    on the same block and mask, and at the main shape in bf16 the
+    kernel's device time a call."""
     import torch
     import torch.nn.functional as F
 
@@ -599,52 +647,74 @@ def check_block(dev) -> dict:
 
     ptx = _ptxas(KB.LIB)
     log(f"block kernel: ptxas: {'; '.join(ptx)}")
+    spills = _spilling(KB.LIB.log, "block_attn_tc_kernel")
+    assert not spills, f"tensor-core block kernels spill: {spills}"
     out = {"ptxas": ptx, "by_case": {}}
     for shape in BLOCK_SHAPES:
-        B, T, H, D = shape
+        B, Tq, Tk, H, D = shape
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             rng = np.random.default_rng(sum(shape) + 1)
-            q, k, v = (torch.from_numpy(
-                rng.standard_normal(shape).astype(np.float32))
-                .to(dev, dtype) for _ in range(3))
+            q = torch.from_numpy(rng.standard_normal(
+                (B, Tq, H, D)).astype(np.float32)).to(dev, dtype)
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (B, Tk, H, D)).astype(np.float32)).to(dev, dtype)
+                for _ in range(2))
             sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            it = 20 if T >= 512 else 50
-            for geo, (qo, ko, causal) in _geometries(T).items():
+            it = 20 if Tq >= 512 else 50
+            for geo, (qo, ko, causal) in _geometries(Tq, Tk).items():
                 offs = (qo, ko)
                 got = KB.block_attn_fwd(q, k, v, offs, causal)
                 ref = BA.block_attention_ref(q, k, v, offs, causal)
                 torch.cuda.synchronize()
-                errs, allows = _block_check(got, ref, FLASH_TOL[dt])
+                errs, allows, rels = _block_check(
+                    got, ref, FLASH_TOL[dt], FLASH_REL_L2[dt], Tk)
                 mask = None
                 if causal:
-                    i = torch.arange(T, device=dev)
-                    mask = (qo + i)[:, None] >= (ko + i)[None, :]
+                    mask = ((qo + torch.arange(Tq, device=dev))[:, None]
+                            >= (ko + torch.arange(Tk, device=dev))[None, :])
                 ms = _time_ms(lambda: KB.block_attn_fwd(q, k, v, offs,
                                                         causal), it)
                 plain_ms = _time_ms(lambda: BA.block_attention_ref(
                     q, k, v, offs, causal), it)
                 lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=mask), it)
-                flops, nbytes = block_costs(shape, qo, ko, causal, dt)
+                flops, nbytes = block_costs(Tq, Tk, B, H, D, qo, ko, causal,
+                                            dt)
                 bound_ms, bound_by = _bound(flops, nbytes, dt)
                 rec = {"max_abs_err": max(errs.values()), "errs": errs,
-                       "tols": allows, "ms": ms,
+                       "tols": allows, "rel_l2": rels, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "flops": flops, "bytes": nbytes,
                        "tflop_per_s": flops / (ms * 1e-3) / 1e12}
+                if (shape, dt) == BLOCK_MAIN[:2]:
+                    by = {n: t / 10 for n, t in _device_ms_by_kernel(
+                        lambda: [KB.block_attn_fwd(q, k, v, offs, causal)
+                                 for _ in range(10)]).items()}
+                    rec["device_ms_by_kernel"] = by
+                    rec["device_ms"] = sum(
+                        t for n, t in by.items() if "block_attn" in n)
+                    log(f"block {shape} {dt} {geo}: device ms a call "
+                        + "; ".join(f"{n[:60]} {t:.4f}"
+                                    for n, t in by.items()))
                 out["by_case"][f"{shape} {dt} {geo}"] = rec
                 log(f"block {shape} {dt} {geo}: max abs err m/l/o "
                     + "/".join(f"{errs[n]:.3g}" for n in "mlo")
                     + " (tol " + "/".join(f"{allows[n]:.3g}" for n in "mlo")
-                    + f"); kernel {ms:.4f} ms "
+                    + "), rel L2 " + "/".join(f"{rels[n]:.3g}" for n in "mlo")
+                    + f" (gate {FLASH_REL_L2[dt]:g}); kernel {ms:.4f} ms "
                     f"({rec['tflop_per_s']:.2f} TFLOP/s), plain "
                     f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
                 del got, ref
             del q, k, v, sq, sk, sv
             torch.cuda.empty_cache()
+    main = out["by_case"][" ".join(str(x) for x in BLOCK_MAIN)]
+    assert main["ms"] < min(main["plain_ms"], BLOCK_MAIN_MAX_MS), (
+        f"block {BLOCK_MAIN}: kernel {main['ms']:.4f} ms, not below its "
+        f"plain version's {main['plain_ms']:.4f} ms and "
+        f"{BLOCK_MAIN_MAX_MS} ms")
     return out
 
 
@@ -823,8 +893,9 @@ def check_sp_step(dev, refs: dict) -> dict:
     # the last step runs under the profiler: its device time by kernel
     by_kernel = _device_ms_by_kernel(adam_step)
     device_ms = sum(by_kernel.values())
-    block_ms = sum(v for k, v in by_kernel.items()
-                   if "block_attn_kernel" in k)
+    # block_attn_tc_kernel (bf16) and block_attn_kernel (f32)
+    block_ms = sum(v for k, v in by_kernel.items() if "block_attn" in k)
+    assert block_ms > 0, "the profiler saw no block kernel in the sp step"
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     log(f"sp Adam steps on a repeated batch: losses {losses}, walls "
         f"{[round(w, 3) for w in walls]} s (the last step profiled)")
@@ -1124,7 +1195,7 @@ def main() -> int:
         if route == "triton":
             t = dict(times[MAIN_N][name], max_abs_err=err[name],
                      library_ms=None)
-            where = {"n": MAIN_N}
+            where = {"n": MAIN_N, "device_ms": t["device_ms"]}
         elif name == "block_attn_fwd":
             b_shape, b_dt, b_geo = BLOCK_MAIN
             t = block["by_case"][f"{b_shape} {b_dt} {b_geo}"]
@@ -1132,7 +1203,7 @@ def main() -> int:
             t = dict(t, max_abs_err=max(
                 r["max_abs_err"] for r in block["by_case"].values()))
             where = {"shape": list(b_shape), "dtype": b_dt,
-                     "geometry": b_geo}
+                     "geometry": b_geo, "device_ms": t["device_ms"]}
         else:
             t = flash["by_shape"][f"{main_shape} {main_dt}"][name]
             # the error over every shape and dtype checked

@@ -12,74 +12,100 @@
 // backward recomputes the plain version and takes its gradient.
 //
 // Contract (the Pallas kernel's, in shape and meaning): q [B, Tq, H, D],
-// k and v [B, Tk, H, D], contiguous, f32 or bf16, D 64 or 128; q_off and
-// k_off are the global positions of q's and k's first tokens.  Outputs,
-// all f32 and unnormalised: m [B, Tq, H] the row max of the scaled
+// k and v [B, Tk, H, D], f32 or bf16, D 64 or 128; q_off and k_off are
+// the global positions of q's and k's first tokens.  Outputs, all f32,
+// contiguous and unnormalised: m [B, Tq, H] the row max of the scaled
 // scores, l [B, Tq, H] = sum_k exp(s - m), o [B, Tq, H, D] =
 // sum_k round(exp(s - m)) v, where round() is to the input type.  With
 // causal, a score whose query position is before its key position is
 // exactly -1e30 (not -inf) and takes part in the max and the sums, so a
 // fully masked row gives m = -1e30, l = Tk and o = sum_k v: the junk the
-// ring's merge wipes.  No tile is skipped.  Keys past Tk (the ragged
-// edge of the last tile) take no part at all.
+// ring's merge wipes.  Keys past Tk (the ragged edge of the last tile)
+// take no part at all.  A key tile is skipped only where that changes
+// no bit: when every score in it is masked for every real row of the
+// query tile (q_off + qe < k_off + k0, qe the tile's last row below Tq)
+// and every row of the query tile sees at least one key (q_off + q0 >=
+// k_off), its p would be exactly 0 and its scores lie below every row's
+// max.  A query tile whose rows are all fully masked (q_off + qe <
+// k_off) forms no score: it writes m = -1e30, l = Tk and o = sum_k v.
 //
 // What bounds it on an H100.  At the MFU config's ring hop (sp = 4:
 // B 4, Tq = Tk 512, H 16, D 128, bf16) the function reads q, k, v
 // (25.2 MB) and writes m, l, o (17.0 MB): 42.2 MB, 12.6 us at 3.35 TB/s;
 // its two products are 8.6 GFLOP, 8.7 us at 989 bf16 TFLOP/s.  So bytes
-// bound it, barely.  This first version computes with plain f32 FMAs
-// from shared memory, as the flash kernels do (no tensor cores, no
-// TMA): it does a third product's work more than the function (the
-// scores twice, below), so at ~10 TFLOP/s it is operations that hold it,
-// about a hundred times the bound; wgmma/TMA tiles are later work.
+// bound it, barely.
 //
-// Design:
-//   * one block of 256 threads per (64-row query tile, b*h); each tile
-//     row is owned by 4 neighbouring lanes of one warp, each lane holding
-//     16 of the 64 columns of a score tile, so a row's max and sum are
-//     two __shfl_xor steps and the score tile never leaves the warp;
-//   * two passes over the key tiles.  The first takes the row max over
-//     the whole of Tk; the second forms p = exp(s - m) in f32, adds it to
-//     l, and adds round(p) v to o.  So p is rounded after the whole-row
-//     max, where the Pallas kernel rounds it (it takes the max over all
-//     of Tk before it exponentiates); an online softmax would round
-//     against a running max instead.  Both passes form the scores with
-//     the same function, so the second pass never sees a score above m;
-//   * the ragged edges: query rows past Tq are loaded as zeros and never
-//     stored; key columns past Tk are left out of the max and the sums.
+// bf16: tensor cores (wgmma) fed by TMA, on the tiles of
+// hopper_tiles.cuh, as the bf16 flash forward (flash_attention.cu).  One
+// block per (query tile, b*h), one producer warp issuing every copy
+// (64-column boxes, 128-byte swizzle, rows past T zero-filled; the maps
+// take the tensors' strides, so a ring shard's view is read in place)
+// into a 2-stage ring of key tiles (128 keys) guarded by full/empty
+// mbarriers, and one or two consumer warpgroups of 64 query rows.
+//   * two passes over the key tiles, so p is rounded after the
+//     whole-row max, where the Pallas kernel rounds it (it takes the max
+//     over all of Tk before it exponentiates; an online softmax would
+//     round against a running max and give other bits).  Pass 1 streams
+//     K alone and takes the row max of S = Q K^T (wgmma, both operands
+//     K-major).  Pass 2 streams K and V, forms the same S with the same
+//     instructions (so it never sees a score above m), p = expf(s - m)
+//     in f32 into l, and feeds p rounded to bf16 (round to nearest even,
+//     as torch casts) from its registers as the A operand of O += P V,
+//     V read MN-major.  Three products for the function's two;
+//   * JAX's order on the accumulator fragment: s = acc * scale, then a
+//     masked score is set to exactly -1e30 and a key past Tk to -inf,
+//     then p = expf(s - m), the subtraction first: on a fully masked row
+//     s - m is exactly 0, so p = 1 and l = Tk exactly (an fma of the
+//     scale into the exponent, as the flash forward does, would leave a
+//     rounding residue of -1e30 * scale, and p = inf);
+//   * the fully masked query tile (the ring's hops above the diagonal)
+//     streams V alone and runs O += 1 V with a fragment of ones;
+//   * the grid runs (b*h) fastest and the query tiles from the last: in
+//     a causal hop the tiles with the most visible keys start first, so
+//     the short ones fill the tail;
+//   * tile height: two consumer warpgroups (128-row tiles) when the grid
+//     of 128-row tiles covers every SM once, else one (64-row tiles), the
+//     flash kernels' rule; the producer warpgroup gives its registers to
+//     two consumers (setmaxnreg), so neither spills.
+// f32: plain FMAs from shared memory (no tensor cores: their f32 path
+// is TF32, which the port's f32 convention excludes), q, k, v
+// contiguous: one block of 256 threads per (64-row query tile, b*h); each
+// tile row is owned by 4 neighbouring lanes of one warp, each lane
+// holding 16 of the 64 columns of a score tile, so a row's max and sum
+// are two __shfl_xor steps; the same two passes (row max, then p into l
+// and round(p) v into o), with no tile skipped; query rows past Tq are
+// loaded as zeros and never stored, key columns past Tk are left out of
+// the max and the sums.  It does the scores twice on FMAs, about a
+// hundred times its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_tiles.cuh"
+
 namespace {
+
+constexpr float MASK = -1e30f;
+
+// ---- f32 on FMAs -------------------------------------------------------------
 
 constexpr int BR = 64;        // rows of a tile (queries or keys)
 constexpr int NT = 256;       // threads a block: 4 lanes per tile row
 constexpr int PAD = 4;        // floats of padding per [BR][D] tile row
 constexpr int SP = BR + 1;    // row stride of the [BR][BR] p tile
 constexpr int NC = BR / 4;    // score columns a lane holds
-constexpr float MASK = -1e30f;
 
 template <typename E> __device__ __forceinline__ float to_f(E x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-// x rounded through the input type (round to nearest even, as torch
-// casts; the identity for f32)
+// x rounded through the input type (the identity for f32)
 template <typename E> __device__ __forceinline__ float round_to(float x);
 template <> __device__ __forceinline__ float round_to<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
-    float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Rows row0 .. row0+BR-1 of head h of batch b of a contiguous [B, T, H, D]
@@ -231,6 +257,271 @@ constexpr size_t smem_bytes(int D) {
   return (3 * size_t(BR) * (D + PAD) + size_t(BR) * SP) * sizeof(float);
 }
 
+// ---- bf16 on the tensor cores ----------------------------------------------
+
+using hopper::align1024;
+using hopper::consumer_regs;
+using hopper::fence_frags;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_tx;
+using hopper::mbar_wait;
+using hopper::pack_bf16;
+using hopper::pack_frags;
+using hopper::producer_regs;
+using hopper::smem_desc_k;
+using hopper::smem_desc_mn;
+using hopper::tc_threads;
+using hopper::tma_load_tile;
+using hopper::two_warpgroups;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs;
+using hopper::wgmma_ss;
+using hopper::wgmma_wait;
+using hopper::zero_regs;
+
+constexpr int ST = 2;         // stages of the copy ring
+constexpr int BN = 128;       // keys a step
+
+struct Strides {
+  int64_t b, t, h;   // elements between rows of b, t and h
+};
+
+template <int D, int NWG>
+struct BlockTc {
+  static constexpr int BM = 64 * NWG;      // query rows a block
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES +
+                              8 * (1 + 2 * ST);
+};
+
+// S = Q K^T for the warpgroup's 64 rows of the Q tile (rows 64 wg ..)
+// against a key tile of BN keys: both operands K-major.
+template <int D, int NWG>
+__device__ __forceinline__ void qk(float (&s)[BN / 2], const uint8_t* Qs,
+                                   const uint8_t* Kt, int wg) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<BN>(s, smem_desc_k(Qs, 64 * NWG, 64 * wg, kk),
+                 smem_desc_k(Kt, BN, 0, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// O += P V: P from registers (BN/16 A fragments), V MN-major.
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2],
+                                   uint32_t (&pa)[BN / 16][4],
+                                   const uint8_t* Vt) {
+  fence_frags(pa);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<D>(o, pa[kk], smem_desc_mn(Vt, BN, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
+// JAX's order on the fragment: s = acc * scale in f32, then a masked
+// score (query position before key position) is exactly MASK and a key
+// past Tk is -inf.  Element 4j + 2i + c is row qp[i], key k0 + 8j + 2qd
+// + c.  `edge` (warp-uniform) is false when no element of the tile can
+// be masked or past Tk.
+__device__ __forceinline__ void scale_mask(float (&s)[BN / 2],
+                                           const int (&qp)[2], int k0,
+                                           int qd, int Tk, int k_off,
+                                           bool causal, bool edge,
+                                           float scale) {
+#pragma unroll
+  for (int x = 0; x < BN / 2; ++x) s[x] *= scale;
+  if (!edge) return;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kc = k0 + 8 * j + 2 * qd + c;
+        float& x = s[4 * j + 2 * i + c];
+        if (kc >= Tk)
+          x = -INFINITY;
+        else if (causal && qp[i] < k_off + kc)
+          x = MASK;
+      }
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(tc_threads(NWG), 1)
+block_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ o_out, int H, int Tq, int Tk,
+                     int q_off, int k_off, int causal, float scale) {
+  using L = BlockTc<D, NWG>;
+  constexpr int BM = L::BM;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + L::Q_BYTES;               // ST stages
+  uint8_t* Vs = Ks + ST * L::KV_BYTES;         // ST stages
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * L::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  // the query tiles with the most keys to run first: every (b, h) of
+  // the last tile, then of the one before, and so on
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * BM;
+  const int qe = min(q0 + BM, Tq) - 1;         // the tile's last real row
+  const int nk = (Tk + BN - 1) / BN;
+  const bool cz = causal != 0;
+  // every real row fully masked: no score, o = sum_k v
+  const bool masked = cz && q_off + qe < k_off;
+  // every row sees a key: the key tiles past the last visible one are
+  // all masked and are skipped
+  const int n_kt = cz && q_off + q0 >= k_off
+                       ? min(nk, (q_off + qe - k_off) / BN + 1)
+                       : nk;
+  const int n_items = masked ? nk : 2 * n_kt;  // pass 1, then pass 2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 4 * NWG);   // one arrival a warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {                       // the producer warpgroup
+    producer_regs<NWG>();
+    if (warp == 4 * NWG && lane == 0) {
+      if (!masked) {
+        mbar_arrive_tx(q_full, L::Q_BYTES);
+        tma_load_tile<D>(Qs, &tq, q_full, BM, q0, h, b);
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % ST;
+        const bool pass1 = !masked && it < n_kt;
+        const int k0 = (masked || pass1 ? it : it - n_kt) * BN;
+        mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], masked || pass1 ? L::KV_BYTES
+                                                  : 2 * L::KV_BYTES);
+        if (!masked)
+          tma_load_tile<D>(Ks + st * L::KV_BYTES, &tk, &full[st], BN, k0, h,
+                           b);
+        if (!pass1)
+          tma_load_tile<D>(Vs + st * L::KV_BYTES, &tv, &full[st], BN, k0, h,
+                           b);
+      }
+    }
+    return;
+  }
+
+  consumer_regs<NWG>();
+  const int wg = warp / 4, qd = lane % 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;   // tile row, i = 0
+  const int qp[2] = {q_off + q0 + r0, q_off + q0 + r0 + 8};
+  // the warp's rows are q_off + w0 .. w0 + 15: a key tile can hold a
+  // masked score for them only if its last key lies past the first row
+  const int w0 = q_off + q0 + 64 * wg + 16 * (warp % 4);
+  float oacc[D / 2];
+  zero_regs(oacc);
+  float m[2], l[2];
+
+  if (masked) {
+    // p = exp(MASK - MASK) = 1 for every key below Tk; V's rows past Tk
+    // are zeros
+    uint32_t ones[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) ones[kk][x] = pack_bf16(1.f, 1.f);
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % ST;
+      mbar_wait(&full[st], (it / ST) & 1);
+      pv<D>(oacc, ones, Vs + st * L::KV_BYTES);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    m[0] = m[1] = MASK;
+    l[0] = l[1] = float(Tk);
+  } else {
+    float sacc[BN / 2];
+    mbar_wait(q_full, 0);
+    // pass 1: the row max over every key tile that can hold it
+    m[0] = m[1] = -INFINITY;
+    for (int it = 0; it < n_kt; ++it) {
+      const int st = it % ST, k0 = it * BN;
+      mbar_wait(&full[st], (it / ST) & 1);
+      qk<D, NWG>(sacc, Qs, Ks + st * L::KV_BYTES, wg);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      const bool edge = k0 + BN > Tk || (cz && w0 < k_off + k0 + BN - 1);
+      scale_mask(sacc, qp, k0, qd, Tk, k_off, cz, edge, scale);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          m[i] = fmaxf(m[i], fmaxf(sacc[4 * j + 2 * i],
+                                   sacc[4 * j + 2 * i + 1]));
+    }
+    m[0] = row_max(m[0]);   // finite: key 0 lies in the first tile
+    m[1] = row_max(m[1]);
+
+    // pass 2: p = exp(s - m) into l, round(p) V into o
+    l[0] = l[1] = 0.f;
+    uint32_t pa[BN / 16][4];
+    for (int t = 0; t < n_kt; ++t) {
+      const int it = n_kt + t, st = it % ST, k0 = t * BN;
+      mbar_wait(&full[st], (it / ST) & 1);
+      qk<D, NWG>(sacc, Qs, Ks + st * L::KV_BYTES, wg);
+      const bool edge = k0 + BN > Tk || (cz && w0 < k_off + k0 + BN - 1);
+      scale_mask(sacc, qp, k0, qd, Tk, k_off, cz, edge, scale);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sacc[4 * j + 2 * i + c];
+            x = expf(x - m[i]);              // past Tk: exp(-inf) = 0
+            l[i] += x;
+          }
+      pack_frags<BN>(pa, sacc);                // p rounded to bf16
+      pv<D>(oacc, pa, Vs + st * L::KV_BYTES);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    l[0] = row_sum(l[0]);
+    l[1] = row_sum(l[1]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    if (qi >= Tq) continue;                    // padding rows: not stored
+    const int64_t row = (int64_t(b) * Tq + qi) * H + h;
+    if (qd == 0) {
+      m_out[row] = m[i];
+      l_out[row] = l[i];
+    }
+    float* dst = o_out + row * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(oacc[4 * j + 2 * i], oacc[4 * j + 2 * i + 1]);
+  }
+}
+
+// ---- launches --------------------------------------------------------------
+
 template <typename E, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, float* m,
                    float* l, float* o, int B, int H, int Tq, int Tk,
@@ -249,17 +540,61 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* m,
   return cudaGetLastError();
 }
 
+template <int D, int NWG>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
+                      float* l, float* o, int B, int H, int Tq, int Tk,
+                      const Strides (&s)[3], int q_off, int k_off,
+                      int causal, float scale, cudaStream_t stream) {
+  using L = BlockTc<D, NWG>;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::make_bthd_map(&tq, q, B, Tq, H, D, s[0].b, s[0].t, s[0].h,
+                             L::BM) ||
+      !hopper::make_bthd_map(&tk, k, B, Tk, H, D, s[1].b, s[1].t, s[1].h,
+                             BN) ||
+      !hopper::make_bthd_map(&tv, v, B, Tk, H, D, s[2].b, s[2].t, s[2].h,
+                             BN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_attn_tc_kernel<D, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + L::BM - 1) / L::BM);
+  block_attn_tc_kernel<D, NWG><<<grid, tc_threads(NWG), L::SMEM, stream>>>(
+      tq, tk, tv, m, l, o, H, Tq, Tk, q_off, k_off, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        float* m, float* l, float* o, int B, int H, int Tq,
+                        int Tk, const Strides (&s)[3], int q_off, int k_off,
+                        int causal, float scale, cudaStream_t stream) {
+  if (two_warpgroups(B, H, Tq))
+    return launch_tc<D, 2>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                           causal, scale, stream);
+  return launch_tc<D, 1>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                         causal, scale, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  Every tensor
-// contiguous; m, l f32 [B, Tq, H] and o f32 [B, Tq, H, D] are written
-// whole.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  strides: the
+// (b, t, h) strides in elements of q, k and v, nine values; D is
+// contiguous.  bf16 reads through TMA maps built from them (bases 16-byte
+// aligned, strides multiples of 16 bytes); f32 takes contiguous tensors
+// and ignores them.  m, l f32 [B, Tq, H] and o f32 [B, Tq, H, D] are
+// contiguous and written whole.  Returns a cudaError_t (0 = launched).
 extern "C" int geo_block_attn_fwd(int dtype, int head_dim, const void* q,
                                   const void* k, const void* v, float* m,
                                   float* l, float* o, int B, int H, int Tq,
-                                  int Tk, int q_off, int k_off, int causal,
+                                  int Tk, const long long* strides,
+                                  int q_off, int k_off, int causal,
                                   float scale, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  Strides s[3];
+  for (int i = 0; i < 3; ++i)
+    s[i] = Strides{int64_t(strides[3 * i]), int64_t(strides[3 * i + 1]),
+                   int64_t(strides[3 * i + 2])};
   if (dtype == 0 && head_dim == 64)
     return launch<float, 64>(q, k, v, m, l, o, B, H, Tq, Tk, q_off, k_off,
                              causal, scale, cs);
@@ -267,10 +602,10 @@ extern "C" int geo_block_attn_fwd(int dtype, int head_dim, const void* q,
     return launch<float, 128>(q, k, v, m, l, o, B, H, Tq, Tk, q_off, k_off,
                               causal, scale, cs);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, m, l, o, B, H, Tq, Tk, q_off,
-                                     k_off, causal, scale, cs);
+    return launch_bf16<64>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                           causal, scale, cs);
   if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, m, l, o, B, H, Tq, Tk, q_off,
-                                      k_off, causal, scale, cs);
+    return launch_bf16<128>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                            causal, scale, cs);
   return int(cudaErrorInvalidValue);
 }

@@ -472,73 +472,31 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 // ---- bf16 on the tensor cores ----------------------------------------------
 
+using hopper::align1024;
+using hopper::consumer_regs;
+using hopper::fence_frags;
 using hopper::fence_regs;
 using hopper::mbar_arrive;
 using hopper::mbar_arrive_tx;
 using hopper::mbar_wait;
-using hopper::pack_bf16;
+using hopper::pack_frags;
+using hopper::producer_regs;
 using hopper::smem_desc_k;
 using hopper::smem_desc_mn;
+using hopper::tc_threads;
 using hopper::tma_load_tile;
+using hopper::two_warpgroups;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_rs;
 using hopper::wgmma_ss;
 using hopper::wgmma_wait;
+using hopper::zero_regs;
 typedef __nv_bfloat16 bf16;
 
-constexpr int WG = 128;      // threads of a warpgroup
 constexpr int ST = 2;        // stages of the copy ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// nwg consumer warpgroups, then a producer warpgroup whose first warp
-// issues the copies (setmaxnreg acts on whole warpgroups).  With two
-// consumer warpgroups the block may hold 168 registers a thread, too few
-// for the accumulators: the producer gives back all but 40, the
-// consumers take 232 (with one, each thread may hold 255 at launch).
-__host__ __device__ constexpr int tc_threads(int nwg) {
-  return (nwg + 1) * WG;
-}
-
-template <int NWG>
-__device__ __forceinline__ void producer_regs() {
-  if constexpr (NWG == 2) hopper::setmaxnreg_dec<40>();
-}
-template <int NWG>
-__device__ __forceinline__ void consumer_regs() {
-  if constexpr (NWG == 2) hopper::setmaxnreg_inc<232>();
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = hopper::smem_addr(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-template <int R>
-__device__ __forceinline__ void fence_regs_u(uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// accumulator d[C/2] of a 64 x C product as C/16 A fragments
-template <int C>
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[C / 16][4],
-                                           const float (&d)[C / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < C / 16; ++kk)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      a[kk][x] = pack_bf16(d[8 * kk + 2 * x], d[8 * kk + 2 * x + 1]);
-}
-
-template <int R>
-__device__ __forceinline__ void zero_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
 
 // rows 8i apart (i = 0, 1) of a 64-row accumulator: dst row base + the
 // thread's columns 8j + 2q, +1, rounded to bf16
@@ -690,7 +648,7 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
     pack_frags<BN>(pa, sacc);                    // p rounded to bf16
 
-    fence_regs_u(pa);
+    fence_frags(pa);
     fence_regs(oacc);
     wgmma_fence();
 #pragma unroll
@@ -869,8 +827,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     pack_frags<QB>(da, pacc);                    // ds*scale rounded to bf16
 
-    fence_regs_u(pa);
-    fence_regs_u(da);
+    fence_frags(pa);
+    fence_frags(da);
     fence_regs(dvacc);
     fence_regs(dkacc);
     wgmma_fence();
@@ -1023,7 +981,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
         }
     pack_frags<KB>(da, pacc);                    // ds*scale rounded to bf16
 
-    fence_regs_u(da);
+    fence_frags(da);
     fence_regs(dqacc);
     wgmma_fence();
 #pragma unroll
@@ -1045,22 +1003,6 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---- launches --------------------------------------------------------------
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
-}
-
-// Two consumer warpgroups (128-row tiles) when the grid of 128-row tiles
-// covers every SM once; else one (64-row tiles, twice the blocks).
-bool two_warpgroups(int B, int H, int n) {
-  return int64_t((n + 127) / 128) * B * H >= sm_count();
-}
 
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {

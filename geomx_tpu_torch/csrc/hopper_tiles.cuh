@@ -1,6 +1,9 @@
 // Tile machinery for Hopper (sm_90a) kernels in raw PTX: TMA tensor maps
 // and loads, an mbarrier ring, and warpgroup matrix multiply (wgmma) on
-// bf16 tiles that TMA lands in shared memory with the 128-byte swizzle.
+// bf16 tiles that TMA lands in shared memory with the 128-byte swizzle;
+// and what the warp-specialised kernels built on it share (a producer
+// warpgroup beside one or two consumer warpgroups, and the rule that
+// picks how many).
 //
 // The one tile layout: a TMA box of 64 bf16 (128 bytes) by R rows,
 // written with CU_TENSOR_MAP_SWIZZLE_128B, so row r sits at byte r*128 of
@@ -303,5 +306,77 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 #undef GEO_F8
 #undef GEO_D32
 #undef GEO_D64
+
+// ---- warp-specialised blocks ---------------------------------------------
+
+constexpr int WG = 128;   // threads of a warpgroup
+
+// nwg consumer warpgroups, then a producer warpgroup whose first warp
+// issues the copies (setmaxnreg acts on whole warpgroups).  With two
+// consumer warpgroups the block may hold 168 registers a thread, too few
+// for the accumulators: the producer gives back all but 40, the
+// consumers take 232 (with one, each thread may hold 255 at launch).
+__host__ __device__ constexpr int tc_threads(int nwg) {
+  return (nwg + 1) * WG;
+}
+
+template <int NWG>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (NWG == 2) setmaxnreg_dec<40>();
+}
+template <int NWG>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (NWG == 2) setmaxnreg_inc<232>();
+}
+
+// the first 1024-byte boundary at or after p (every box starts on one)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// fence_regs for A fragments
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// accumulator d[C/2] of a 64 x C product as C/16 A fragments
+template <int C>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[C / 16][4],
+                                           const float (&d)[C / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kk][x] = pack_bf16(d[8 * kk + 2 * x], d[8 * kk + 2 * x + 1]);
+}
+
+// ---- host: tile height -------------------------------------------------
+
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return count;
+}
+
+// Two consumer warpgroups (128-row tiles) when the grid of 128-row tiles
+// covers every SM once; else one (64-row tiles, twice the blocks).
+inline bool two_warpgroups(int B, int H, int n) {
+  return int64_t((n + 127) / 128) * B * H >= sm_count();
+}
 
 }  // namespace hopper

@@ -1,16 +1,19 @@
-"""The bf16 flash kernels with one and with two consumer warpgroups, at
-the shapes the port runs them, on one CUDA card.
+"""The bf16 flash and block-attention kernels with one and with two
+consumer warpgroups, at the shapes the port runs them, on one CUDA card.
 
-    python -m geomx_tpu_torch.examples.time_flash_tiles
+    python -m geomx_tpu_torch.examples.time_flash_tiles [--kernels flash,block]
 
-The launchers in ``csrc/flash_attention.cu`` choose the tile height by
-the grid (``two_warpgroups``).  This script builds two copies of that
-source into the kernel cache, one whose rule always answers one
-consumer warpgroup (64-row tiles) and one that always answers two
-(128-row tiles), holds each against the plain versions, and reports at
-each shape the CUDA-event time of a forward and of a backward call (50
-calls) and the device time by kernel (``torch.profiler`` over 10 calls),
-in the order one, two, two, one.  Writes
+The launchers in ``csrc/flash_attention.cu`` and
+``csrc/block_attention.cu`` choose the tile height by the grid
+(``two_warpgroups`` in ``csrc/hopper_tiles.cuh``).  This script builds
+two copies of each source into the kernel cache, one whose rule always
+answers one consumer warpgroup (64-row tiles) and one that always
+answers two (128-row tiles), holds each against the plain versions, and
+reports, in the order one, two, two, one: for flash at each shape the
+CUDA-event time of a forward and of a backward call (50 calls) and the
+device time by kernel (``torch.profiler`` over 10 calls); for the block
+kernel at the MFU config's ring hop the same for one call in each hop
+geometry.  Writes
 ``chiprun_out/flash_tiles.json`` (under the current directory) and
 prints the card's name and power limit.  Needs a CUDA card and
 ``nvcc``.
@@ -33,29 +36,36 @@ import numpy as np
 # (B, T, H, Dh): the flagship LM's, the MFU config's, and T off the
 # 128-row tile with few (b, h)
 SHAPES = ((8, 128, 6, 64), (4, 2048, 16, 128), (1, 2047, 2, 128))
+# (B, T, H, D) of the MFU config's ring hop at sp = 4, and its geometries
+BLOCK_SHAPE = (4, 512, 16, 128)
+BLOCK_GEOMETRIES = {"below": (512, 0), "diagonal": (0, 0), "above": (0, 512)}
 ORDER = (1, 2, 2, 1)
-_RULE = re.compile(r"bool two_warpgroups\(int B, int H, int n\) \{\n"
-                   r".*?\n\}", re.S)
+_RULE = re.compile(r"inline bool two_warpgroups\(int B, int H, int n\) "
+                   r"\{\n.*?\n\}", re.S)
 
 
-def variant(nwg: int):
-    """An ``NvccLibrary`` of the flash source whose launchers always take
+def variant(mod, nwg: int):
+    """An ``NvccLibrary`` of the source of kernel module ``mod`` (its
+    ``LIB``), built beside a copy of the headers whose rule always takes
     ``nwg`` consumer warpgroups."""
-    from geomx_tpu_torch.ops.kernels import flash_attention as FK
     from geomx_tpu_torch.utils.build import NvccLibrary
 
-    src = Path(FK.LIB.source)
-    text, hits = _RULE.subn(
-        "bool two_warpgroups(int, int, int) { return "
-        f"{'true' if nwg == 2 else 'false'}; }}", src.read_text())
-    if hits != 1:
-        raise RuntimeError(f"two_warpgroups not found once in {src}")
-    d = FK.KERNEL_CACHE / f"tiles_nwg{nwg}"
+    src = Path(mod.LIB.source)
+    d = mod.KERNEL_CACHE / f"tiles_{src.stem}_nwg{nwg}"
     d.mkdir(parents=True, exist_ok=True)
+    hits = 0
     for h in src.parent.glob("*.cuh"):
-        shutil.copy(h, d / h.name)
-    (d / src.name).write_text(text)
-    return NvccLibrary(d / src.name, d / "libflash_attention.so", FK._bind)
+        text, n = _RULE.subn(
+            "inline bool two_warpgroups(int, int, int) { return "
+            f"{'true' if nwg == 2 else 'false'}; }}", h.read_text())
+        (d / h.name).write_text(text)
+        hits += n
+    if hits != 1:
+        raise RuntimeError(f"two_warpgroups not found once in the headers "
+                           f"beside {src}")
+    shutil.copy(src, d / src.name)
+    return NvccLibrary(d / src.name, d / Path(mod.LIB.library).name,
+                       mod._bind)
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -115,7 +125,7 @@ def measure(shape) -> dict:
     refs = FA.flash_attention_bwd_ref(q, k, v, ro, rlse, do, scale)
     runs = []
     for nwg in ORDER:
-        FK.LIB = LIBS[nwg]
+        FK.LIB = LIBS["flash", nwg]
         o, lse = FK.flash_fwd(q, k, v, scale)
         grads = FK.flash_bwd(q, k, v, o, lse, do, scale)
         rel = {n: _rel_l2(g, r) for n, g, r in zip(
@@ -143,14 +153,59 @@ def measure(shape) -> dict:
     return {"shape": list(shape), "runs": runs}
 
 
+def measure_block() -> dict:
+    """Each block-kernel variant at :data:`BLOCK_SHAPE` in bf16, in
+    :data:`ORDER`, in each of :data:`BLOCK_GEOMETRIES`."""
+    import torch
+
+    from geomx_tpu_torch.ops import block_attention as BA
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
+
+    rng = np.random.default_rng(sum(BLOCK_SHAPE))
+    q, k, v = (torch.from_numpy(
+        rng.standard_normal(BLOCK_SHAPE).astype(np.float32))
+        .to("cuda", torch.bfloat16) for _ in range(3))
+    refs = {g: BA.block_attention_ref(q, k, v, offs, True)
+            for g, offs in BLOCK_GEOMETRIES.items()}
+    runs = []
+    for nwg in ORDER:
+        KB.LIB = LIBS["block", nwg]
+        rec = {"nwg": nwg}
+        for geo, offs in BLOCK_GEOMETRIES.items():
+            m, l, o = KB.block_attn_fwd(q, k, v, offs, True)
+            rm, rl, ro = refs[geo]
+            live = rm > -1e29                  # m of a fully masked row
+            rel = max(_rel_l2(l, rl), _rel_l2(o, ro),
+                      _rel_l2(m[live], rm[live]) if live.any() else 0.0)
+            if rel > 1e-2:
+                raise AssertionError(f"block {geo} nwg={nwg}: rel L2 {rel}")
+            fn = (lambda offs=offs: KB.block_attn_fwd(q, k, v, offs, True))
+            rec[geo] = {"rel_l2": rel, "ms": _time_ms(fn, 50),
+                        "device_ms": _device_ms_by_kernel(fn)}
+            print(f"block {BLOCK_SHAPE} {geo} nwg={nwg}: {rec[geo]['ms']:.4f}"
+                  f" ms (events); device "
+                  f"{sum(rec[geo]['device_ms'].values()):.4f} ms; worst rel "
+                  f"L2 {rel:.2e}", flush=True)
+        runs.append(rec)
+    return {"shape": list(BLOCK_SHAPE), "runs": runs}
+
+
 LIBS: dict = {}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default="flash,block",
+                    help="comma-separated: flash, block")
+    kernels = ap.parse_args(argv).kernels.split(",")
+    mods = {"flash": FK, "block": KB}
     if not torch.cuda.is_available():
         print("time_flash_tiles: no CUDA device", file=sys.stderr)
         return 2
@@ -159,15 +214,20 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    default = FK.LIB
-    LIBS.update({nwg: variant(nwg) for nwg in (1, 2)})
-    with ThreadPoolExecutor(max_workers=2) as pool:   # nvcc in parallel
+    defaults = {name: mods[name].LIB for name in kernels}
+    LIBS.update({(name, nwg): variant(mods[name], nwg)
+                 for name in kernels for nwg in (1, 2)})
+    with ThreadPoolExecutor(max_workers=len(LIBS)) as pool:   # nvcc at once
         list(pool.map(lambda lib: lib.load(), LIBS.values()))
+    report = {"nvidia_smi": smi}
     try:
-        report = {"nvidia_smi": smi,
-                  "by_shape": [measure(s) for s in SHAPES]}
+        if "flash" in kernels:
+            report["by_shape"] = [measure(s) for s in SHAPES]
+        if "block" in kernels:
+            report["block"] = measure_block()
     finally:
-        FK.LIB = default
+        for name, lib in defaults.items():
+            mods[name].LIB = lib
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "flash_tiles.json"), "w") as f:
         json.dump(report, f, indent=1)
