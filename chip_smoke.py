@@ -8,13 +8,25 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device report — the ``nvidia-smi`` name and power limit;
-2. kernels — each Triton codec kernel against its plain PyTorch version
-   on the card: 2-bit quantize and dequantize in both layouts compared
-   bitwise (inputs hold signed zeros and values exactly at ±t), the DGC
-   update bitwise too (tolerance: none), at 1, 4097, 401,408 (the CNN's
-   largest leaf) and 50,000,000 elements; then CUDA-event times, and at
-   401,408 each kernel's device time a call (``torch.profiler`` over 10
-   calls);
+2. codec kernels — the CUDA C++ 2-bit quantize and dequantize
+   (``geomx_tpu_torch/csrc/quantize.cu``, built with ``nvcc``) against
+   their plain PyTorch versions on the card, bitwise (tolerance: none),
+   in both layouts, at 1, 3, 5, 384, 4097, 147,456, 401,408 (the CNN's
+   largest leaf), 3,145,728 (the LM's largest) and 50,000,000 elements,
+   on aligned tensors and on views offset by 1, 2 and 3 elements (f32
+   inputs and uint8 codes alike), on inputs that hold signed zeros and
+   values exactly at ±t; the Triton quantize and dequantize (a
+   yardstick, no longer on any path) and the Triton DGC update bitwise
+   too, at 1, 4097, 401,408 and 50,000,000; then at 384, 401,408,
+   3,145,728 and 50,000,000 the CUDA-event time of each kernel (CUDA and
+   Triton in turns: Triton, CUDA, CUDA, Triton) and of its plain version
+   beside its bound, GB/s, and each kernel's device time a call
+   (``torch.profiler``, 10 calls each in one window); and the LM push
+   sweep: the flagship LM's 35 key sizes in model order, one quantize
+   each, then one dequantize each, CUDA-event time over 20 sweeps, CUDA
+   and Triton in turns.  The CUDA route's event time must be below the
+   Triton route's at 401,408 and on the sweep, for quantize and for
+   dequantize;
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
    tensor cores, f32 on FMAs) against their plain versions in bf16 and
@@ -85,10 +97,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    8 steps under 2bit); the launch counts are set to 0 just before each
    run and read just after it, and each path must launch its own
    kernels (2bit: quantize and dequantize; bsc: DGC; LM: flash forward
-   and backward, quantize and dequantize).
+   and backward, quantize and dequantize) and never the Triton
+   quantize or dequantize.
 
-The two CUDA sources are built with ``nvcc`` at the start, in parallel,
-while the Triton phase runs.
+The three CUDA sources are built with ``nvcc`` at the start, in
+parallel; phase 2 waits for the codec library, the small one.
 
 Prints, before the last line, the kernel table as one JSON object, and
 as the last line ``{"ok": true, "device": {...}}``.  Writes the kernel
@@ -111,6 +124,12 @@ F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SIZES = (1, 4097, 401_408, 50_000_000)
 MAIN_N = 401_408              # largest leaf of the CNN: the main path's size
+# the CUDA codec kernels are also checked at the LM's key sizes (384,
+# 147,456, 3,145,728) and at sizes off a whole byte; offsets in elements
+CODEC_SIZES = tuple(sorted(set(SIZES) | {3, 5, 384, 147_456, 3_145_728}))
+CODEC_OFFSETS = (1, 2, 3)
+CODEC_TIME_SIZES = (384, MAIN_N, 3_145_728, 50_000_000)
+LM_SWEEPS = 20
 THRESHOLD = 0.5
 MOMENTUM = 0.9
 STEPS = 12
@@ -201,49 +220,80 @@ def _max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def _offset_view(t, off: int):
+    """``t`` copied ``off`` elements into a larger tensor: a contiguous
+    view whose first element lies ``off`` × its item size past an
+    aligned start."""
+    import torch
+
+    base = torch.zeros(t.numel() + off, dtype=t.dtype, device=t.device)
+    base[off:].copy_(t)
+    return base[off:]
+
+
 def check_kernels(dev) -> dict:
-    """Every kernel against its plain version at every size; returns the
-    largest absolute error of each kernel (0 where bitwise)."""
+    """Every codec kernel against its plain version at every size (the
+    CUDA ones also on offset views); returns the largest absolute error
+    of each kernel (0 where bitwise)."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
     from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
     err = {"quantize_2bit": 0.0, "dequantize_2bit": 0.0, "dgc_update": 0.0}
-    for n in SIZES:
+    for n in CODEC_SIZES:
         g, r = _inputs(n, dev, seed=n)
         for layout in Q.LAYOUTS:
-            p_k, r_k = K.quantize_2bit(g, r, THRESHOLD, layout)
-            p_p, r_p = Q.quantize_2bit_ref(g, r, THRESHOLD, layout)
-            torch.cuda.synchronize()
-            assert _bits_equal(p_k, p_p), f"quantize {layout} n={n}: codes"
-            assert _bits_equal(r_k, r_p), f"quantize {layout} n={n}: residual"
-            err["quantize_2bit"] = max(err["quantize_2bit"],
-                                       _max_abs(r_k, r_p))
-            d_k = K.dequantize_2bit(p_k, n, THRESHOLD, layout)
-            d_p = Q.dequantize_2bit_ref(p_k, n, THRESHOLD, layout)
-            torch.cuda.synchronize()
-            assert _bits_equal(d_k, d_p), f"dequantize {layout} n={n}"
-            err["dequantize_2bit"] = max(err["dequantize_2bit"],
-                                         _max_abs(d_k, d_p))
+            for off in (0,) + CODEC_OFFSETS:
+                gv, rv = ((g, r) if off == 0 else
+                          (_offset_view(g, off), _offset_view(r, off)))
+                p_k, r_k = C.quantize_2bit(gv, rv, THRESHOLD, layout)
+                p_p, r_p = Q.quantize_2bit_ref(gv, rv, THRESHOLD, layout)
+                torch.cuda.synchronize()
+                what = f"quantize {layout} n={n} offset {off}"
+                assert _bits_equal(p_k, p_p), f"{what}: codes"
+                assert _bits_equal(r_k, r_p), f"{what}: residual"
+                err["quantize_2bit"] = max(err["quantize_2bit"],
+                                           _max_abs(r_k, r_p))
+                pv = p_k if off == 0 else _offset_view(p_k, off)
+                d_k = C.dequantize_2bit(pv, n, THRESHOLD, layout)
+                d_p = Q.dequantize_2bit_ref(pv, n, THRESHOLD, layout)
+                torch.cuda.synchronize()
+                assert _bits_equal(d_k, d_p), \
+                    f"dequantize {layout} n={n} offset {off}"
+                err["dequantize_2bit"] = max(err["dequantize_2bit"],
+                                             _max_abs(d_k, d_p))
+            if n in SIZES:
+                # the Triton yardstick, on aligned tensors
+                p_t, r_t = K.quantize_2bit(g, r, THRESHOLD, layout)
+                d_t = K.dequantize_2bit(p_t, n, THRESHOLD, layout)
+                torch.cuda.synchronize()
+                assert _bits_equal(p_t, p_p) and _bits_equal(r_t, r_p), \
+                    f"triton quantize {layout} n={n}"
+                assert _bits_equal(d_t, d_p), f"triton dequantize {layout} n={n}"
         if n > 1:
             # consecutive layout: the -0.0 residual survives
             z = r_k[0::13]
             z = z[z == 0]
             assert z.numel() > 0 and bool(torch.signbit(z).all()), \
                 "consecutive residual lost -0.0"
-        v = r * 3.0
-        v_k, u_k = K.dgc_update(v, r, g, MOMENTUM)
-        v_p, u_p = Q.dgc_update_ref(v, r, g, MOMENTUM)
-        torch.cuda.synchronize()
-        # tolerance: none — the kernel rounds m·v and + g apart
-        # (enable_fp_fusion=False), as the plain version does
-        for a, b, what in ((v_k, v_p, "v"), (u_k, u_p, "u")):
-            err["dgc_update"] = max(err["dgc_update"], _max_abs(a, b))
-            assert _bits_equal(a, b), f"dgc n={n} {what}: not bitwise"
-        log(f"kernels n={n}: quantize/dequantize bitwise in both layouts, "
-            f"dgc max abs err {err['dgc_update']:g}")
-        del g, r, v
+        if n in SIZES:
+            v = r * 3.0
+            v_k, u_k = K.dgc_update(v, r, g, MOMENTUM)
+            v_p, u_p = Q.dgc_update_ref(v, r, g, MOMENTUM)
+            torch.cuda.synchronize()
+            # tolerance: none — the kernel rounds m·v and + g apart
+            # (enable_fp_fusion=False), as the plain version does
+            for a, b, what in ((v_k, v_p, "v"), (u_k, u_p, "u")):
+                err["dgc_update"] = max(err["dgc_update"], _max_abs(a, b))
+                assert _bits_equal(a, b), f"dgc n={n} {what}: not bitwise"
+            del v
+        log(f"kernels n={n}: CUDA quantize/dequantize bitwise in both "
+            f"layouts at offsets 0-3"
+            + (f"; Triton quantize/dequantize bitwise, dgc max abs err "
+               f"{err['dgc_update']:g}" if n in SIZES else ""))
+        del g, r
         torch.cuda.empty_cache()
     return err
 
@@ -264,6 +314,16 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(first, second, iters: int) -> tuple:
+    """Event times (ms) of two versions of one function, run first,
+    second, second, first: the mean of each version's two runs."""
+    a1 = _time_ms(first, iters)
+    b1 = _time_ms(second, iters)
+    b2 = _time_ms(second, iters)
+    a2 = _time_ms(first, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def kernel_costs(n: int) -> dict:
     """Bytes each function must move (inputs read once, outputs written
     once) and its f32 operations, for n elements (consecutive layout)."""
@@ -279,84 +339,175 @@ def kernel_costs(n: int) -> dict:
     }
 
 
+def _bound_ms(name: str, n: int) -> tuple:
+    nbytes, ops = kernel_costs(n)[name]
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / F32_OPS_PER_S * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def _codec_kernel_of(name: str):
+    """The (route, function) a profiler kernel name belongs to."""
+    for marker, key in (("_dgc_kernel", ("triton", "dgc_update")),
+                        ("_dequant_kernel", ("triton", "dequantize_2bit")),
+                        ("_quant_kernel", ("triton", "quantize_2bit")),
+                        ("dequant_", ("cuda", "dequantize_2bit")),
+                        ("quant_", ("cuda", "quantize_2bit"))):
+        if marker in name:
+            return key
+    return None
+
+
 def time_kernels(dev, sizes, iters_for) -> dict:
-    """CUDA-event times of each kernel and its plain version (and, for
-    DGC, the in-place two-op torch form) at each size, warm in L2 where
-    the tensor fits (the codec reads the accumulator the merge just
-    wrote)."""
+    """At each size: CUDA-event times of the CUDA and the Triton
+    quantize and dequantize (in turns) and of their plain versions, of
+    the Triton DGC update, its plain version and the in-place two-op
+    torch form, warm in L2 where the tensors fit (the codec reads the
+    accumulator the merge just wrote); then each kernel's device time a
+    call (one profiler window, 10 calls of each)."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
     from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
+    lay = "consecutive"
     out = {}
     for n in sizes:
         g, r = _inputs(n, dev, seed=7)
         v = r * 3.0
-        packed, _ = K.quantize_2bit(g, r, THRESHOLD, "consecutive")
+        packed, _ = C.quantize_2bit(g, r, THRESHOLD, lay)
         it = iters_for(n)
-        row = {
+        calls = {
             "quantize_2bit": (
-                _time_ms(lambda: K.quantize_2bit(g, r, THRESHOLD,
-                                                 "consecutive"), it),
-                _time_ms(lambda: Q.quantize_2bit_ref(g, r, THRESHOLD,
-                                                     "consecutive"), it)),
+                lambda m: (lambda: m.quantize_2bit(g, r, THRESHOLD, lay)),
+                lambda: Q.quantize_2bit_ref(g, r, THRESHOLD, lay)),
             "dequantize_2bit": (
-                _time_ms(lambda: K.dequantize_2bit(packed, n, THRESHOLD,
-                                                   "consecutive"), it),
-                _time_ms(lambda: Q.dequantize_2bit_ref(
-                    packed, n, THRESHOLD, "consecutive"), it)),
-            "dgc_update": (
-                _time_ms(lambda: K.dgc_update(v, r, g, MOMENTUM), it),
-                _time_ms(lambda: Q.dgc_update_ref(v, r, g, MOMENTUM), it)),
+                lambda m: (lambda: m.dequantize_2bit(packed, n, THRESHOLD,
+                                                     lay)),
+                lambda: Q.dequantize_2bit_ref(packed, n, THRESHOLD, lay)),
         }
+        out[n] = {}
+        for name, (call, plain) in calls.items():
+            triton_ms, ms = _in_turns(call(K), call(C), it)
+            out[n][name] = {"ms": ms, "triton_ms": triton_ms,
+                            "plain_ms": _time_ms(plain, it)}
         vv, uu = v.clone(), r.clone()
 
         def inplace():
             vv.mul_(MOMENTUM).add_(g)
             uu.add_(vv)
 
-        dgc_inplace = _time_ms(inplace, it)
-        device = {}
-        if n == MAIN_N:
-            # device time a call (profiler, 10 calls): at this size the
-            # event time is mostly Triton's host launch path
-            for name, fn in (
-                    ("quantize_2bit", lambda: K.quantize_2bit(
-                        g, r, THRESHOLD, "consecutive")),
-                    ("dequantize_2bit", lambda: K.dequantize_2bit(
-                        packed, n, THRESHOLD, "consecutive")),
-                    ("dgc_update", lambda: K.dgc_update(v, r, g,
-                                                        MOMENTUM))):
-                by = _device_ms_by_kernel(lambda: [fn() for _ in range(10)])
-                device[name] = {k: t / 10 for k, t in by.items()}
-        costs = kernel_costs(n)
-        out[n] = {}
-        for name, (ms, plain_ms) in row.items():
-            nbytes, ops = costs[name]
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / F32_OPS_PER_S * 1e3
-            rec = {"ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(b_bytes, b_ops),
-                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                   "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
-            if name == "dgc_update":
-                rec["torch_inplace_ms"] = dgc_inplace
-            if name in device:
-                rec["device_ms_by_kernel"] = device[name]
-                rec["device_ms"] = sum(device[name].values())
-            out[n][name] = rec
-            log(f"time n={n} {name}: kernel {ms:.4f} ms "
-                f"({rec['gb_per_s']:.1f} GB/s), plain {plain_ms:.4f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms"
-                + (f", in-place torch {dgc_inplace:.4f} ms"
-                   if name == "dgc_update" else "")
-                + (f"; device {rec['device_ms']:.5f} ms a call ("
-                   + "; ".join(f"{k[:40]} {t:.5f}"
-                               for k, t in device[name].items()) + ")"
-                   if name in device else ""))
+        out[n]["dgc_update"] = {
+            "ms": _time_ms(lambda: K.dgc_update(v, r, g, MOMENTUM), it),
+            "plain_ms": _time_ms(lambda: Q.dgc_update_ref(v, r, g, MOMENTUM),
+                                 it),
+            "torch_inplace_ms": _time_ms(inplace, it)}
+        # device time a call: 10 calls of each kernel in one window
+        fns = [calls[f][0](m) for f in calls for m in (C, K)]
+        fns.append(lambda: K.dgc_update(v, r, g, MOMENTUM))
+        by = _device_ms_by_kernel(lambda: [f() for f in fns
+                                           for _ in range(10)])
+        dev_ms = {}
+        for k, t in by.items():
+            key = _codec_kernel_of(k)
+            if key is not None:
+                dev_ms[key] = dev_ms.get(key, 0.0) + t / 10
+        for name, rec in out[n].items():
+            nbytes = kernel_costs(n)[name][0]
+            rec["bound_ms"], rec["bound_by"] = _bound_ms(name, n)
+            route = "triton" if name == "dgc_update" else "cuda"
+            rec["device_ms"] = dev_ms.get((route, name))
+            rec["gb_per_s"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+            if name != "dgc_update":
+                rec["triton_device_ms"] = dev_ms.get(("triton", name))
+                rec["triton_gb_per_s"] = (nbytes / (rec["triton_ms"] * 1e-3)
+                                          / 1e9)
+            assert rec["device_ms"] is not None, \
+                f"the profiler saw no {route} {name} kernel at n={n}"
+            log(f"time n={n} {name}: {route} {rec['ms']:.4f} ms "
+                f"({rec['gb_per_s']:.1f} GB/s), device "
+                f"{rec['device_ms']:.5f} ms a call"
+                + (f"; triton {rec['triton_ms']:.4f} ms "
+                   f"({rec['triton_gb_per_s']:.1f} GB/s), device "
+                   f"{rec['triton_device_ms']:.5f} ms"
+                   if name != "dgc_update" else
+                   f"; in-place torch {rec['torch_inplace_ms']:.4f} ms")
+                + f"; plain {rec['plain_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
         del g, r, v, vv, uu, packed
         torch.cuda.empty_cache()
+    main = out[MAIN_N]
+    for name in ("quantize_2bit", "dequantize_2bit"):
+        assert main[name]["ms"] < main[name]["triton_ms"], (
+            f"{name} n={MAIN_N}: CUDA {main[name]['ms']:.4f} ms, not below "
+            f"Triton's {main[name]['triton_ms']:.4f} ms")
+    return out
+
+
+def lm_key_sizes() -> list:
+    """The flagship LM's key sizes in model order (its push order)."""
+    import torch
+
+    from geomx_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+
+    a = dict(zip(LM_ARGS[0::2], LM_ARGS[1::2]))
+    cfg = TransformerConfig(
+        vocab=int(a["--vocab"]), d_model=int(a["--d-model"]),
+        n_heads=int(a["--heads"]), n_layers=int(a["--layers"]),
+        d_ff=int(a["--d-ff"]), max_seq=int(a["--seq"]))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sizes = [t.numel() for t in params.values()]
+    assert sum(sizes) == LM_PARAMS, sum(sizes)
+    return sizes
+
+
+def time_lm_sweep(dev) -> dict:
+    """One party's push of the flagship LM through the codec: its 35
+    keys in model order, one quantize each, then one dequantize each of
+    the codes; CUDA-event time of a sweep over ``LM_SWEEPS`` sweeps, the
+    CUDA and the Triton route in turns, and the plain versions."""
+    import torch
+
+    from geomx_tpu_torch.ops import quantize as Q
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+    from geomx_tpu_torch.ops.kernels import quantize_triton as K
+
+    lay = "consecutive"
+    sizes = lm_key_sizes()
+    keys = [_inputs(n, dev, seed=i) for i, n in enumerate(sizes)]
+    codes = [C.quantize_2bit(g, r, THRESHOLD, lay)[0] for g, r in keys]
+
+    def quant(m):
+        return lambda: [m.quantize_2bit(g, r, THRESHOLD, lay)
+                        for g, r in keys]
+
+    def dequant(m):
+        return lambda: [m.dequantize_2bit(p, n, THRESHOLD, lay)
+                        for p, n in zip(codes, sizes)]
+
+    out = {"keys": len(sizes), "elements": sum(sizes), "sweeps": LM_SWEEPS}
+    for name, (sweep, plain) in (
+            ("quantize_2bit", (quant, lambda: [
+                Q.quantize_2bit_ref(g, r, THRESHOLD, lay) for g, r in keys])),
+            ("dequantize_2bit", (dequant, lambda: [
+                Q.dequantize_2bit_ref(p, n, THRESHOLD, lay)
+                for p, n in zip(codes, sizes)]))):
+        triton_ms, ms = _in_turns(sweep(K), sweep(C), LM_SWEEPS)
+        bound = sum(_bound_ms(name, n)[0] for n in sizes)
+        out[name] = {"ms": ms, "triton_ms": triton_ms,
+                     "plain_ms": _time_ms(plain, LM_SWEEPS),
+                     "bound_ms": bound}
+        log(f"LM push sweep ({len(sizes)} keys, {sum(sizes)} elements) "
+            f"{name}: cuda {ms:.4f} ms, triton {triton_ms:.4f} ms, plain "
+            f"{out[name]['plain_ms']:.4f} ms, bound {bound:.5f} ms")
+        assert ms < triton_ms, (
+            f"LM push sweep {name}: CUDA {ms:.4f} ms, not below Triton's "
+            f"{triton_ms:.4f} ms")
+    del keys, codes
+    torch.cuda.empty_cache()
     return out
 
 
@@ -543,8 +694,9 @@ def start_cuda_builds():
 
     from geomx_tpu_torch.ops.kernels import block_attention as KB
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
 
-    pool = ThreadPoolExecutor(max_workers=2)
+    pool = ThreadPoolExecutor(max_workers=3)
     t0 = time.perf_counter()
 
     def build(lib):
@@ -552,7 +704,8 @@ def start_cuda_builds():
         return time.perf_counter() - t0
 
     futs = {name: pool.submit(build, lib)
-            for name, lib in (("flash", FK.LIB), ("block", KB.LIB))}
+            for name, lib in (("codec", C.LIB), ("flash", FK.LIB),
+                              ("block", KB.LIB))}
     pool.shutdown(wait=False)
     return futs
 
@@ -1095,21 +1248,26 @@ KERNEL_ROWS = {
     "block_attn_fwd": ("geomx_tpu/ops/block_attention.py:72 _kernel "
                        "(pallas_call :141, flash_block_attention :154)"),
 }
-_TRITON = ("triton", "geomx_tpu_torch/ops/kernels/quantize_triton.py")
+_CODEC = ("cuda", "geomx_tpu_torch/csrc/quantize.cu")
 _FLASH = ("cuda", "geomx_tpu_torch/csrc/flash_attention.cu")
 # (route, source) of each kernel
-ROUTES = {"quantize_2bit": _TRITON, "dequantize_2bit": _TRITON,
-          "dgc_update": _TRITON, "flash_fwd": _FLASH, "flash_bwd": _FLASH,
+ROUTES = {"quantize_2bit": _CODEC, "dequantize_2bit": _CODEC,
+          "dgc_update": ("triton",
+                         "geomx_tpu_torch/ops/kernels/quantize_triton.py"),
+          "flash_fwd": _FLASH, "flash_bwd": _FLASH,
           "block_attn_fwd": ("cuda",
                              "geomx_tpu_torch/csrc/block_attention.cu")}
+# the Triton quantize and dequantize: a yardstick that no path may launch
+YARDSTICK = ("triton_quantize_2bit", "triton_dequantize_2bit")
 
 
 def _launch_modules():
     from geomx_tpu_torch.ops.kernels import block_attention as KB
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
     from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
-    return K, FK, KB
+    return K, C, FK, KB
 
 
 def reset_all_launches() -> None:
@@ -1118,8 +1276,12 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    out = {}
-    for mod in _launch_modules():
+    """Each kernel's launches; the Triton quantize and dequantize under
+    ``triton_``-prefixed names."""
+    K, *rest = _launch_modules()
+    out = {("triton_" + k if k != "dgc_update" else k): v
+           for k, v in K.launches().items()}
+    for mod in rest:
         out.update(mod.launches())
     return out
 
@@ -1151,9 +1313,14 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     builds = start_cuda_builds()
+    builds["codec"].result()
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+
+    log(f"codec kernels: ptxas: {'; '.join(_ptxas(C.LIB))}")
     err = check_kernels(dev)
-    times = time_kernels(dev, SIZES,
-                         lambda n: 20 if n >= 10_000_000 else 200)
+    times = time_kernels(dev, CODEC_TIME_SIZES,
+                         lambda n: 20 if n >= 10_000_000 else 500)
+    sweep = time_lm_sweep(dev)
     log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
     build_s = {name: f.result() for name, f in builds.items()}
     log(f"CUDA sources built with nvcc, in parallel: "
@@ -1184,6 +1351,9 @@ def main() -> int:
             assert counts[name] > 0, \
                 f"{name} was not launched on the {path} main path"
             launches.setdefault(name, counts[name])
+        for name in YARDSTICK:
+            assert counts[name] == 0, \
+                f"{name} (the yardstick) was launched on the {path} path"
     # the block kernel's main path is phase 4b's sequence-parallel step
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
     assert set(launches) == set(KERNEL_ROWS), "a kernel has no main path"
@@ -1192,10 +1362,14 @@ def main() -> int:
     main_shape, main_dt = FLASH_MAIN
     for name, replaces in KERNEL_ROWS.items():
         route, source = ROUTES[name]
-        if route == "triton":
+        if name in err:
             t = dict(times[MAIN_N][name], max_abs_err=err[name],
                      library_ms=None)
             where = {"n": MAIN_N, "device_ms": t["device_ms"]}
+            if name in sweep:
+                where.update(triton_ms=t["triton_ms"],
+                             triton_device_ms=t["triton_device_ms"],
+                             lm_push_sweep=sweep[name])
         elif name == "block_attn_fwd":
             b_shape, b_dt, b_geo = BLOCK_MAIN
             t = block["by_case"][f"{b_shape} {b_dt} {b_geo}"]
@@ -1226,6 +1400,7 @@ def main() -> int:
             **where})
     report = {"nvidia_smi": smi, "kernels": rows, "build_s": build_s,
               "times_by_size": {str(n): v for n, v in times.items()},
+              "lm_push_sweep": sweep,
               "flash": flash, "block": block, "full_width_step": full,
               "sp_step": sp,
               "georound": geo, "seconds": time.perf_counter() - t0}

@@ -4,10 +4,14 @@ and CUDA.
 The host runtime (transport, PS core, both server tiers, codecs, control
 and telemetry planes) is the same code as the JAX package's, kept as a
 copy; the device side — the merge backend, the device optimizer, the WAN
-codec stage, the worker's model — is PyTorch, and the three WAN codec
-kernels are hand-written Triton kernels for Hopper
-(:mod:`geomx_tpu_torch.ops.kernels.quantize_triton`).  Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+codec stage, the worker's model — is PyTorch, and every kernel the JAX
+package wrote in Pallas is a hand kernel for Hopper: the 2-bit quantize
+and dequantize of the WAN codec (CUDA C++, ``csrc/quantize.cu``, via
+:mod:`geomx_tpu_torch.ops.kernels.quantize_cuda`), its DGC update
+(Triton, :mod:`geomx_tpu_torch.ops.kernels.quantize_triton`), flash
+attention and the ring hop's block attention (CUDA C++,
+``csrc/flash_attention.cu`` and ``csrc/block_attention.cu``).  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from geomx_tpu_torch.core.config import Config, Role, Topology  # noqa: F401

@@ -1,5 +1,11 @@
 """Triton kernels for the WAN codec stage on Hopper.
 
+The dispatcher (``ops/quantize.py``) sends only the DGC update here: the
+2-bit quantize and dequantize run as CUDA C++ kernels
+(``ops/kernels/quantize_cuda.py``), whose launch path is shorter than
+Triton's.  The Triton pair stays only as a yardstick that
+``chip_smoke.py`` times beside them.
+
 Three kernels, each a port of a Pallas kernel of the JAX package
 (``geomx_tpu/ops/quantize.py``):
 

@@ -1,10 +1,13 @@
 """WAN codec kernels: 2-bit quantize with residual feedback, 2-bit
 dequantize, and the fused DGC momentum update.
 
-Each function here is a dispatcher: a CUDA tensor goes to the hand
-kernel in :mod:`geomx_tpu_torch.ops.kernels.quantize_triton`, a CPU
-tensor to the plain PyTorch version beside it (``*_ref``).  There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+Each function here is a dispatcher: a CUDA tensor goes to a hand
+kernel — 2-bit quantize and dequantize to the CUDA C++ kernels of
+:mod:`geomx_tpu_torch.ops.kernels.quantize_cuda`, the DGC update to the
+Triton kernel of :mod:`geomx_tpu_torch.ops.kernels.quantize_triton` —
+and a CPU tensor to the plain PyTorch version beside it (``*_ref``).
+There is no fallback between them: a CUDA tensor launches its kernel or
+raises.
 
 Two packings of the 2-bit codes exist, chosen by ``layout``:
 
@@ -31,7 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from geomx_tpu_torch.ops.kernels import quantize_triton
+from geomx_tpu_torch.ops.kernels import quantize_cuda, quantize_triton
 
 LANES = 1024            # lanes of one row of the strided layout
 QROWS = 128             # rows of one strided block
@@ -142,22 +145,26 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no codec kernel for device {t.device}")
 
 
+# The codec stage calls these once per key per party, where the host's
+# share of a call is most of its cost: a CUDA tensor goes straight to the
+# wrapper, which checks the layout and the tensors and passes the
+# threshold through ctypes as an f32 (rounded as np.float32 rounds it).
+
 def quantize_2bit(grad: torch.Tensor, residual: torch.Tensor,
                   threshold: float = 0.5, layout: str = "consecutive"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_layout(layout)
-    if _route(grad) == "kernel":
-        return quantize_triton.quantize_2bit(grad, residual,
-                                             _f32(threshold), layout)
+    if grad.is_cuda:
+        return quantize_cuda.quantize_2bit(grad, residual, threshold, layout)
+    _route(grad)
     return quantize_2bit_ref(grad, residual, threshold, layout)
 
 
 def dequantize_2bit(packed: torch.Tensor, n: int, threshold: float = 0.5,
                     layout: str = "consecutive") -> torch.Tensor:
-    _check_layout(layout)
-    if _route(packed) == "kernel":
-        return quantize_triton.dequantize_2bit(packed, int(n),
-                                               _f32(threshold), layout)
+    if packed.is_cuda:
+        return quantize_cuda.dequantize_2bit(packed, int(n), threshold,
+                                             layout)
+    _route(packed)
     return dequantize_2bit_ref(packed, n, threshold, layout)
 
 

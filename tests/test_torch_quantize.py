@@ -10,8 +10,10 @@
 - DGC on dyadic inputs, where a fused multiply-add and two rounded
   operations agree, so the comparison is bitwise whatever XLA fuses;
 - the dispatcher: CPU tensors take the plain version, the kernel
-  wrapper refuses a CPU tensor, and a CUDA card (when present) holds
-  each kernel against its plain version bitwise.
+  wrappers (CUDA C++ for quantize and dequantize, Triton for DGC)
+  refuse a CPU tensor, and a CUDA card (when present) holds each Triton
+  kernel against its plain version bitwise (the CUDA kernels are held
+  in ``test_torch_quantize_cuda.py``).
 
 Tolerance everywhere: exact (bit patterns compared).
 """
@@ -28,6 +30,7 @@ from geomx_tpu.kvstore.jax_backend import JaxBackend
 from geomx_tpu.ops.quantize import (dequantize_2bit_tpu, dgc_update_tpu,
                                     quantize_2bit_tpu)
 from geomx_tpu_torch.ops import quantize as Q
+from geomx_tpu_torch.ops.kernels import quantize_cuda as C
 from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
 THR = 0.5
@@ -134,13 +137,16 @@ def test_inputs_are_not_modified():
 def test_dispatch_cpu_uses_plain_version_and_kernel_refuses_cpu():
     g, r = _inputs(64)
     tg, tr = torch.from_numpy(g), torch.from_numpy(r)
-    before = K.launches()
+    before = (C.launches(), K.launches())
     Q.quantize_2bit(tg, tr, THR, "consecutive")
     Q.dequantize_2bit(torch.zeros(16, dtype=torch.uint8), 64, THR)
     Q.dgc_update(tr, tr, tg, 0.9)
-    assert K.launches() == before  # no kernel ran on the host
+    assert (C.launches(), K.launches()) == before  # no kernel on the host
     with pytest.raises(ValueError, match="CUDA"):
-        K.quantize_2bit(tg, tr, THR, "consecutive")
+        C.quantize_2bit(tg, tr, THR, "consecutive")
+    with pytest.raises(ValueError, match="CUDA"):
+        C.dequantize_2bit(torch.zeros(16, dtype=torch.uint8), 64, THR,
+                          "consecutive")
     with pytest.raises(ValueError, match="CUDA"):
         K.dgc_update(tr, tr, tg, 0.9)
     with pytest.raises(ValueError, match="layout"):
@@ -151,11 +157,11 @@ def test_dispatch_cpu_uses_plain_version_and_kernel_refuses_cpu():
 @pytest.mark.parametrize("mod", ["dispatcher", "kernel"])
 def test_unknown_layout_raises_on_every_route(fn, mod):
     """A misspelled layout is refused before any route is chosen: the
-    kernel wrappers check it too, so the card never falls through to
-    the consecutive kernel."""
+    CUDA kernel wrapper checks it too, so the card never falls through
+    to the consecutive kernel."""
     g, r = _inputs(64)
     tg, tr = torch.from_numpy(g), torch.from_numpy(r)
-    m = Q if mod == "dispatcher" else K
+    m = Q if mod == "dispatcher" else C
     with pytest.raises(ValueError, match="layout"):
         if fn == "quantize":
             m.quantize_2bit(tg, tr, THR, "stride")
