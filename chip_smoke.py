@@ -8,25 +8,26 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device report — the ``nvidia-smi`` name and power limit;
-2. codec kernels — the CUDA C++ 2-bit quantize and dequantize
-   (``geomx_tpu_torch/csrc/quantize.cu``, built with ``nvcc``) against
-   their plain PyTorch versions on the card, bitwise (tolerance: none),
-   in both layouts, at 1, 3, 5, 384, 4097, 147,456, 401,408 (the CNN's
-   largest leaf), 3,145,728 (the LM's largest) and 50,000,000 elements,
-   on aligned tensors and on views offset by 1, 2 and 3 elements (f32
-   inputs and uint8 codes alike), on inputs that hold signed zeros and
-   values exactly at ±t; the Triton quantize and dequantize (a
-   yardstick, no longer on any path) and the Triton DGC update bitwise
-   too, at 1, 4097, 401,408 and 50,000,000; then at 384, 401,408,
-   3,145,728 and 50,000,000 the CUDA-event time of each kernel (CUDA and
-   Triton in turns: Triton, CUDA, CUDA, Triton) and of its plain version
-   beside its bound, GB/s, and each kernel's device time a call
-   (``torch.profiler``, 10 calls each in one window); and the LM push
-   sweep: the flagship LM's 35 key sizes in model order, one quantize
-   each, then one dequantize each, CUDA-event time over 20 sweeps, CUDA
-   and Triton in turns.  The CUDA route's event time must be below the
-   Triton route's at 401,408 and on the sweep, for quantize and for
-   dequantize;
+2. codec kernels — the CUDA C++ 2-bit quantize, dequantize and DGC
+   update (``geomx_tpu_torch/csrc/quantize.cu``, built with ``nvcc``)
+   against their plain PyTorch versions on the card, bitwise (tolerance:
+   none), at 1, 3, 5, 384, 4097, 147,456, 401,408 (the CNN's largest
+   leaf), 3,145,728 (the LM's largest) and 50,000,000 elements, on
+   aligned tensors and on views offset by 1, 2 and 3 elements (f32
+   inputs and uint8 codes alike), on inputs that hold signed zeros:
+   quantize and dequantize in both layouts and on values exactly at
+   ±t, the DGC update out of place and in place (``out`` = its inputs)
+   at momentum 0.9 and 0.0; then at 384, 401,408, 3,145,728 and
+   50,000,000 the CUDA-event time of each kernel (the DGC update also
+   in place) and of its plain version (for the DGC update also the
+   three in-place torch operations) beside its bound, GB/s, and each
+   kernel's device time a call (``torch.profiler``, 10 calls each in one
+   window); and the LM push sweep: the flagship LM's 35 key sizes in
+   model order, one quantize each, then one dequantize each, CUDA-event
+   time over 20 sweeps.  Each kernel's event time must be below its
+   plain version's and below the event time of the Triton kernel it
+   replaced, as last measured (``TRITON_LAST_MS``): at 401,408 for all
+   three, and on the sweep for quantize and dequantize;
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
    tensor cores, f32 on FMAs) against their plain versions in bf16 and
@@ -43,8 +44,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    spill in a tensor-core kernel; CUDA-event times of kernel, plain version
    and ``scaled_dot_product_attention`` (a yardstick only, never on the
    port's path), each beside its bound, and at the LM's and the MFU
-   shape in bf16 each kernel's device time a call (``torch.profiler``
-   over 10 calls);
+   shape in both dtypes each kernel's device time a call
+   (``torch.profiler`` over 10 calls);
 3b. block attention — the CUDA kernel of a ring hop's partial block
    (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 on the tensor
    cores, f32 on FMAs) against its plain version in bf16 and f32, for
@@ -61,10 +62,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    must show no spill in a tensor-core kernel; CUDA-event times of
    kernel, plain version and ``scaled_dot_product_attention`` on the
    same block and mask (a yardstick only: it returns normalised ``o``),
-   each beside its bound, and at the main shape in bf16 the kernel's
-   device time a call in each geometry; the bf16 kernel at the main
-   shape, "below", must take less event time than its plain version and
-   than 0.30 ms;
+   each beside its bound, and at the main shape in both dtypes the
+   kernel's device time a call in each geometry; the bf16 kernel at the
+   main shape, "below", must take less event time than its plain version
+   and than 0.30 ms;
 4. full-width reference step — one forward and backward of the port's
    transformer at the MFU config's widths (d 2048, 16 heads, 8 layers,
    d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
@@ -96,9 +97,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    full width, 10,276,224 parameters, flash attention, bf16, FSA, Adam,
    8 steps under 2bit); the launch counts are set to 0 just before each
    run and read just after it, and each path must launch its own
-   kernels (2bit: quantize and dequantize; bsc: DGC; LM: flash forward
-   and backward, quantize and dequantize) and never the Triton
-   quantize or dequantize.
+   kernels (2bit: quantize and dequantize; bsc: the DGC update, exactly
+   2 parties × 10 keys a step; LM: flash forward and backward, quantize
+   and dequantize).
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -132,7 +133,15 @@ CODEC_TIME_SIZES = (384, MAIN_N, 3_145_728, 50_000_000)
 LM_SWEEPS = 20
 THRESHOLD = 0.5
 MOMENTUM = 0.9
+DGC_MOMENTA = (MOMENTUM, 0.0)
+# event times (ms) of the Triton kernels that the CUDA ones replaced, as
+# last measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md, kernel table): at
+# 401,408 elements, and over the LM push sweep
+TRITON_LAST_MS = {"quantize_2bit": 0.0359, "dequantize_2bit": 0.0278,
+                  "dgc_update": 0.0369}
+TRITON_LAST_SWEEP_MS = {"quantize_2bit": 1.2189, "dequantize_2bit": 0.8287}
 STEPS = 12
+CNN_KEYS = 10                 # the CNN's parameter leaves: keys a push
 # flash attention: (B, T, H, Dh) of the flagship LM (the main path),
 # the MFU config, a ragged tail, T off the 128-row tile, T off it with
 # enough (b, h) for the bf16 kernels' two-warpgroup tiles, T below one
@@ -231,15 +240,28 @@ def _offset_view(t, off: int):
     return base[off:]
 
 
+def _dgc_inputs(n: int, dev, seed: int):
+    """Gradient, velocity and accumulator, all three -0.0 at the same
+    places (a product and sums of negative zeros)."""
+    import torch
+
+    g, _ = _inputs(n, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    v = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    u = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    v[0::13] = -0.0
+    u[0::13] = -0.0
+    return g, torch.from_numpy(v).to(dev), torch.from_numpy(u).to(dev)
+
+
 def check_kernels(dev) -> dict:
-    """Every codec kernel against its plain version at every size (the
-    CUDA ones also on offset views); returns the largest absolute error
+    """Every codec kernel against its plain version at every size, on
+    aligned tensors and offset views; returns the largest absolute error
     of each kernel (0 where bitwise)."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
     from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
     err = {"quantize_2bit": 0.0, "dequantize_2bit": 0.0, "dgc_update": 0.0}
     for n in CODEC_SIZES:
@@ -264,36 +286,40 @@ def check_kernels(dev) -> dict:
                     f"dequantize {layout} n={n} offset {off}"
                 err["dequantize_2bit"] = max(err["dequantize_2bit"],
                                              _max_abs(d_k, d_p))
-            if n in SIZES:
-                # the Triton yardstick, on aligned tensors
-                p_t, r_t = K.quantize_2bit(g, r, THRESHOLD, layout)
-                d_t = K.dequantize_2bit(p_t, n, THRESHOLD, layout)
-                torch.cuda.synchronize()
-                assert _bits_equal(p_t, p_p) and _bits_equal(r_t, r_p), \
-                    f"triton quantize {layout} n={n}"
-                assert _bits_equal(d_t, d_p), f"triton dequantize {layout} n={n}"
         if n > 1:
             # consecutive layout: the -0.0 residual survives
             z = r_k[0::13]
             z = z[z == 0]
             assert z.numel() > 0 and bool(torch.signbit(z).all()), \
                 "consecutive residual lost -0.0"
-        if n in SIZES:
-            v = r * 3.0
-            v_k, u_k = K.dgc_update(v, r, g, MOMENTUM)
-            v_p, u_p = Q.dgc_update_ref(v, r, g, MOMENTUM)
-            torch.cuda.synchronize()
-            # tolerance: none — the kernel rounds m·v and + g apart
-            # (enable_fp_fusion=False), as the plain version does
-            for a, b, what in ((v_k, v_p, "v"), (u_k, u_p, "u")):
-                err["dgc_update"] = max(err["dgc_update"], _max_abs(a, b))
-                assert _bits_equal(a, b), f"dgc n={n} {what}: not bitwise"
-            del v
-        log(f"kernels n={n}: CUDA quantize/dequantize bitwise in both "
-            f"layouts at offsets 0-3"
-            + (f"; Triton quantize/dequantize bitwise, dgc max abs err "
-               f"{err['dgc_update']:g}" if n in SIZES else ""))
-        del g, r
+        del g, r, p_k, r_k, p_p, r_p, pv, d_k, d_p
+        g, v, u = _dgc_inputs(n, dev, seed=n)
+        for off in (0,) + CODEC_OFFSETS:
+            gv, vv, uv = (_offset_view(t, off) for t in (g, v, u))
+            for m in DGC_MOMENTA:
+                # tolerance: none — the kernel rounds m·v and each sum
+                # apart (__fmul_rn/__fadd_rn), as the plain version does
+                v_p, u_p = Q.dgc_update_ref(vv, uv, gv, m)
+                v_k, u_k = C.dgc_update(vv, uv, gv, m)
+                vi, ui = _offset_view(vv, off), _offset_view(uv, off)
+                C.dgc_update(vi, ui, gv, m, out=(vi, ui))
+                torch.cuda.synchronize()
+                for a, b, what in ((v_k, v_p, "v"), (u_k, u_p, "u"),
+                                   (vi, v_p, "v in place"),
+                                   (ui, u_p, "u in place")):
+                    err["dgc_update"] = max(err["dgc_update"],
+                                            _max_abs(a, b))
+                    assert _bits_equal(a, b), \
+                        f"dgc n={n} offset {off} m={m} {what}: not bitwise"
+        if n > 1:
+            z = u_p[0::13]
+            z = z[z == 0]
+            assert z.numel() > 0 and bool(torch.signbit(z).all()), \
+                "the DGC update lost -0.0"
+        log(f"kernels n={n}: quantize/dequantize bitwise in both layouts, "
+            f"dgc bitwise out of place and in place at momenta "
+            f"{DGC_MOMENTA}, at offsets 0-3")
+        del g, v, u, gv, vv, uv, v_p, u_p, v_k, u_k, vi, ui
         torch.cuda.empty_cache()
     return err
 
@@ -348,29 +374,35 @@ def _bound_ms(name: str, n: int) -> tuple:
 
 
 def _codec_kernel_of(name: str):
-    """The (route, function) a profiler kernel name belongs to."""
-    for marker, key in (("_dgc_kernel", ("triton", "dgc_update")),
-                        ("_dequant_kernel", ("triton", "dequantize_2bit")),
-                        ("_quant_kernel", ("triton", "quantize_2bit")),
-                        ("dequant_", ("cuda", "dequantize_2bit")),
-                        ("quant_", ("cuda", "quantize_2bit"))):
+    """The function a profiler kernel name belongs to."""
+    for marker, fn in (("dgc_update", "dgc_update"),
+                       ("dequant_", "dequantize_2bit"),
+                       ("quant_", "quantize_2bit")):
         if marker in name:
-            return key
+            return fn
     return None
 
 
+def _below_gates(what: str, ms: float, plain_ms: float,
+                 replaced_ms: float) -> None:
+    """A kernel's event time must be below its plain version's and the
+    Triton kernel's it replaced."""
+    assert ms < min(plain_ms, replaced_ms), (
+        f"{what}: CUDA {ms:.4f} ms, not below its plain version's "
+        f"{plain_ms:.4f} ms and the Triton kernel's {replaced_ms:.4f} ms")
+
+
 def time_kernels(dev, sizes, iters_for) -> dict:
-    """At each size: CUDA-event times of the CUDA and the Triton
-    quantize and dequantize (in turns) and of their plain versions, of
-    the Triton DGC update, its plain version and the in-place two-op
-    torch form, warm in L2 where the tensors fit (the codec reads the
+    """At each size: CUDA-event times of the CUDA quantize, dequantize
+    and DGC update (out of place and in place) and of their plain
+    versions, and of the three in-place torch operations of the DGC
+    update, warm in L2 where the tensors fit (the codec reads the
     accumulator the merge just wrote); then each kernel's device time a
     call (one profiler window, 10 calls of each)."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
     from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
     lay = "consecutive"
     out = {}
@@ -378,71 +410,60 @@ def time_kernels(dev, sizes, iters_for) -> dict:
         g, r = _inputs(n, dev, seed=7)
         v = r * 3.0
         packed, _ = C.quantize_2bit(g, r, THRESHOLD, lay)
+        vv, uu = v.clone(), r.clone()
         it = iters_for(n)
         calls = {
             "quantize_2bit": (
-                lambda m: (lambda: m.quantize_2bit(g, r, THRESHOLD, lay)),
+                lambda: C.quantize_2bit(g, r, THRESHOLD, lay),
                 lambda: Q.quantize_2bit_ref(g, r, THRESHOLD, lay)),
             "dequantize_2bit": (
-                lambda m: (lambda: m.dequantize_2bit(packed, n, THRESHOLD,
-                                                     lay)),
+                lambda: C.dequantize_2bit(packed, n, THRESHOLD, lay),
                 lambda: Q.dequantize_2bit_ref(packed, n, THRESHOLD, lay)),
+            "dgc_update": (
+                lambda: C.dgc_update(v, r, g, MOMENTUM),
+                lambda: Q.dgc_update_ref(v, r, g, MOMENTUM)),
         }
-        out[n] = {}
-        for name, (call, plain) in calls.items():
-            triton_ms, ms = _in_turns(call(K), call(C), it)
-            out[n][name] = {"ms": ms, "triton_ms": triton_ms,
-                            "plain_ms": _time_ms(plain, it)}
-        vv, uu = v.clone(), r.clone()
+        out[n] = {name: {"ms": _time_ms(call, it),
+                         "plain_ms": _time_ms(plain, it)}
+                  for name, (call, plain) in calls.items()}
 
-        def inplace():
+        def torch_inplace():
             vv.mul_(MOMENTUM).add_(g)
             uu.add_(vv)
 
-        out[n]["dgc_update"] = {
-            "ms": _time_ms(lambda: K.dgc_update(v, r, g, MOMENTUM), it),
-            "plain_ms": _time_ms(lambda: Q.dgc_update_ref(v, r, g, MOMENTUM),
-                                 it),
-            "torch_inplace_ms": _time_ms(inplace, it)}
+        dgc = out[n]["dgc_update"]
+        dgc["inplace_ms"] = _time_ms(
+            lambda: C.dgc_update(vv, uu, g, MOMENTUM, out=(vv, uu)), it)
+        dgc["torch_inplace_ms"] = _time_ms(torch_inplace, it)
         # device time a call: 10 calls of each kernel in one window
-        fns = [calls[f][0](m) for f in calls for m in (C, K)]
-        fns.append(lambda: K.dgc_update(v, r, g, MOMENTUM))
-        by = _device_ms_by_kernel(lambda: [f() for f in fns
+        by = _device_ms_by_kernel(lambda: [call() for call, _ in
+                                           calls.values()
                                            for _ in range(10)])
         dev_ms = {}
         for k, t in by.items():
-            key = _codec_kernel_of(k)
-            if key is not None:
-                dev_ms[key] = dev_ms.get(key, 0.0) + t / 10
+            fn = _codec_kernel_of(k)
+            if fn is not None:
+                dev_ms[fn] = dev_ms.get(fn, 0.0) + t / 10
         for name, rec in out[n].items():
             nbytes = kernel_costs(n)[name][0]
             rec["bound_ms"], rec["bound_by"] = _bound_ms(name, n)
-            route = "triton" if name == "dgc_update" else "cuda"
-            rec["device_ms"] = dev_ms.get((route, name))
+            rec["device_ms"] = dev_ms.get(name)
             rec["gb_per_s"] = nbytes / (rec["ms"] * 1e-3) / 1e9
-            if name != "dgc_update":
-                rec["triton_device_ms"] = dev_ms.get(("triton", name))
-                rec["triton_gb_per_s"] = (nbytes / (rec["triton_ms"] * 1e-3)
-                                          / 1e9)
             assert rec["device_ms"] is not None, \
-                f"the profiler saw no {route} {name} kernel at n={n}"
-            log(f"time n={n} {name}: {route} {rec['ms']:.4f} ms "
+                f"the profiler saw no {name} kernel at n={n}"
+            log(f"time n={n} {name}: cuda {rec['ms']:.4f} ms "
                 f"({rec['gb_per_s']:.1f} GB/s), device "
                 f"{rec['device_ms']:.5f} ms a call"
-                + (f"; triton {rec['triton_ms']:.4f} ms "
-                   f"({rec['triton_gb_per_s']:.1f} GB/s), device "
-                   f"{rec['triton_device_ms']:.5f} ms"
-                   if name != "dgc_update" else
-                   f"; in-place torch {rec['torch_inplace_ms']:.4f} ms")
+                + (f"; in place {rec['inplace_ms']:.4f} ms, in-place torch "
+                   f"{rec['torch_inplace_ms']:.4f} ms"
+                   if name == "dgc_update" else "")
                 + f"; plain {rec['plain_ms']:.4f} ms, bound "
                 f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
         del g, r, v, vv, uu, packed
         torch.cuda.empty_cache()
-    main = out[MAIN_N]
-    for name in ("quantize_2bit", "dequantize_2bit"):
-        assert main[name]["ms"] < main[name]["triton_ms"], (
-            f"{name} n={MAIN_N}: CUDA {main[name]['ms']:.4f} ms, not below "
-            f"Triton's {main[name]['triton_ms']:.4f} ms")
+    for name, rec in out[MAIN_N].items():
+        _below_gates(f"{name} n={MAIN_N}", rec["ms"], rec["plain_ms"],
+                     TRITON_LAST_MS[name])
     return out
 
 
@@ -467,13 +488,12 @@ def lm_key_sizes() -> list:
 def time_lm_sweep(dev) -> dict:
     """One party's push of the flagship LM through the codec: its 35
     keys in model order, one quantize each, then one dequantize each of
-    the codes; CUDA-event time of a sweep over ``LM_SWEEPS`` sweeps, the
-    CUDA and the Triton route in turns, and the plain versions."""
+    the codes; CUDA-event time of a sweep over ``LM_SWEEPS`` sweeps, of
+    the CUDA kernels and of the plain versions."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
     from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
     lay = "consecutive"
     sizes = lm_key_sizes()
@@ -490,22 +510,20 @@ def time_lm_sweep(dev) -> dict:
 
     out = {"keys": len(sizes), "elements": sum(sizes), "sweeps": LM_SWEEPS}
     for name, (sweep, plain) in (
-            ("quantize_2bit", (quant, lambda: [
+            ("quantize_2bit", (quant(C), lambda: [
                 Q.quantize_2bit_ref(g, r, THRESHOLD, lay) for g, r in keys])),
-            ("dequantize_2bit", (dequant, lambda: [
+            ("dequantize_2bit", (dequant(C), lambda: [
                 Q.dequantize_2bit_ref(p, n, THRESHOLD, lay)
                 for p, n in zip(codes, sizes)]))):
-        triton_ms, ms = _in_turns(sweep(K), sweep(C), LM_SWEEPS)
+        ms = _time_ms(sweep, LM_SWEEPS)
         bound = sum(_bound_ms(name, n)[0] for n in sizes)
-        out[name] = {"ms": ms, "triton_ms": triton_ms,
-                     "plain_ms": _time_ms(plain, LM_SWEEPS),
+        out[name] = {"ms": ms, "plain_ms": _time_ms(plain, LM_SWEEPS),
                      "bound_ms": bound}
         log(f"LM push sweep ({len(sizes)} keys, {sum(sizes)} elements) "
-            f"{name}: cuda {ms:.4f} ms, triton {triton_ms:.4f} ms, plain "
+            f"{name}: cuda {ms:.4f} ms, plain "
             f"{out[name]['plain_ms']:.4f} ms, bound {bound:.5f} ms")
-        assert ms < triton_ms, (
-            f"LM push sweep {name}: CUDA {ms:.4f} ms, not below Triton's "
-            f"{triton_ms:.4f} ms")
+        _below_gates(f"LM push sweep {name}", ms, out[name]["plain_ms"],
+                     TRITON_LAST_SWEEP_MS[name])
     del keys, codes
     torch.cuda.empty_cache()
     return out
@@ -652,10 +670,11 @@ def check_flash(dev) -> dict:
             }
             costs = flash_costs(shape, dt)
             rec = {"rel_l2": rel, "rel_l2_to_unrounded": control}
-            if (shape, dt) in (FLASH_MAIN, FLASH_MFU):
+            if shape in (FLASH_MAIN[0], FLASH_MFU[0]):
                 # device time by kernel a call, over 10 calls (a one-call
-                # window can lose records): the event times at the LM's
-                # shape are mostly the host's launch path
+                # window can lose records), in both dtypes: the event
+                # times at the LM's shape are mostly the host's launch
+                # path
                 for name, fn in (
                         ("flash_fwd", lambda: FK.flash_fwd(q, k, v, scale)),
                         ("flash_bwd", lambda: FK.flash_bwd(q, k, v, o, lse,
@@ -841,7 +860,7 @@ def check_block(dev) -> dict:
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "flops": flops, "bytes": nbytes,
                        "tflop_per_s": flops / (ms * 1e-3) / 1e12}
-                if (shape, dt) == BLOCK_MAIN[:2]:
+                if shape == BLOCK_MAIN[0]:
                     by = {n: t / 10 for n, t in _device_ms_by_kernel(
                         lambda: [KB.block_attn_fwd(q, k, v, offs, causal)
                                  for _ in range(10)]).items()}
@@ -1252,22 +1271,20 @@ _CODEC = ("cuda", "geomx_tpu_torch/csrc/quantize.cu")
 _FLASH = ("cuda", "geomx_tpu_torch/csrc/flash_attention.cu")
 # (route, source) of each kernel
 ROUTES = {"quantize_2bit": _CODEC, "dequantize_2bit": _CODEC,
-          "dgc_update": ("triton",
-                         "geomx_tpu_torch/ops/kernels/quantize_triton.py"),
-          "flash_fwd": _FLASH, "flash_bwd": _FLASH,
+          "dgc_update": _CODEC, "flash_fwd": _FLASH, "flash_bwd": _FLASH,
           "block_attn_fwd": ("cuda",
                              "geomx_tpu_torch/csrc/block_attention.cu")}
-# the Triton quantize and dequantize: a yardstick that no path may launch
-YARDSTICK = ("triton_quantize_2bit", "triton_dequantize_2bit")
+# launches a path must make exactly: the DGC update once per key per
+# party per step
+PATH_EXACT = {"bsc": {"dgc_update": 2 * CNN_KEYS * STEPS}}
 
 
 def _launch_modules():
     from geomx_tpu_torch.ops.kernels import block_attention as KB
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
     from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
-    return K, C, FK, KB
+    return C, FK, KB
 
 
 def reset_all_launches() -> None:
@@ -1276,12 +1293,9 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    """Each kernel's launches; the Triton quantize and dequantize under
-    ``triton_``-prefixed names."""
-    K, *rest = _launch_modules()
-    out = {("triton_" + k if k != "dgc_update" else k): v
-           for k, v in K.launches().items()}
-    for mod in rest:
+    """Each kernel's launches."""
+    out = {}
+    for mod in _launch_modules():
         out.update(mod.launches())
     return out
 
@@ -1298,10 +1312,6 @@ def main() -> int:
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    # the kernels build from this checkout's sources into its own cache
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(root, "geomx_tpu_torch",
-                                         ".kernel_cache"))
     from geomx_tpu_torch.core.platform import resolve_device
 
     # a float32 reference states its matmul and convolution precision
@@ -1351,9 +1361,10 @@ def main() -> int:
             assert counts[name] > 0, \
                 f"{name} was not launched on the {path} main path"
             launches.setdefault(name, counts[name])
-        for name in YARDSTICK:
-            assert counts[name] == 0, \
-                f"{name} (the yardstick) was launched on the {path} path"
+        for name, want in PATH_EXACT.get(path, {}).items():
+            assert counts[name] == want, \
+                f"{name} launched {counts[name]} times on the {path} " \
+                f"path, not {want}"
     # the block kernel's main path is phase 4b's sequence-parallel step
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
     assert set(launches) == set(KERNEL_ROWS), "a kernel has no main path"
@@ -1367,9 +1378,10 @@ def main() -> int:
                      library_ms=None)
             where = {"n": MAIN_N, "device_ms": t["device_ms"]}
             if name in sweep:
-                where.update(triton_ms=t["triton_ms"],
-                             triton_device_ms=t["triton_device_ms"],
-                             lm_push_sweep=sweep[name])
+                where["lm_push_sweep"] = sweep[name]
+            else:
+                where.update(inplace_ms=t["inplace_ms"],
+                             torch_inplace_ms=t["torch_inplace_ms"])
         elif name == "block_attn_fwd":
             b_shape, b_dt, b_geo = BLOCK_MAIN
             t = block["by_case"][f"{b_shape} {b_dt} {b_geo}"]

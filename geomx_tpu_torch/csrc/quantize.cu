@@ -1,12 +1,14 @@
-// The WAN codec's 2-bit quantize and dequantize for Hopper (sm_90a).
+// The WAN codec's 2-bit quantize and dequantize, and the DGC momentum
+// update, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of geomx_tpu/ops/quantize.py:
 // _quant_kernel (:39, launched by the pallas_call at :67 and reached
-// through quantize_2bit_tpu at :87) and _dequant_kernel (:105, the
-// pallas_call at :125, dequantize_2bit_tpu at :138).  The plain PyTorch
-// versions are quantize_2bit_ref and dequantize_2bit_ref in
-// geomx_tpu_torch/ops/quantize.py; the ctypes binding and the build are
-// in geomx_tpu_torch/ops/kernels/quantize_cuda.py.
+// through quantize_2bit_tpu at :87), _dequant_kernel (:105, the
+// pallas_call at :125, dequantize_2bit_tpu at :138) and _dgc_kernel
+// (:147, the pallas_call at :161, dgc_update_tpu at :174).  The plain
+// PyTorch versions are quantize_2bit_ref, dequantize_2bit_ref and
+// dgc_update_ref in geomx_tpu_torch/ops/quantize.py; the ctypes binding
+// and the build are in geomx_tpu_torch/ops/kernels/quantize_cuda.py.
 //
 // Contract, bit for bit the plain versions'.  Quantize: r = r_in + g;
 // code 1 where r > t, 2 where r < -t, else 0; four codes a byte, low
@@ -22,18 +24,24 @@
 // Elements past n read as 0 and code 0; the padding bytes of the strided
 // layout are written, residual elements past n are not.  Dequantize:
 // code 1 gives +t, 2 gives -t, 0 and 3 give +0.0; n elements written.
-// Neither kernel multiplies, so no contraction can change a bit; the
-// build must not use -use_fast_math (it flushes denormals).
+// DGC update: v' = m*v + g, then u' = u + v', each product and sum
+// rounded on its own.  Quantize and dequantize do not multiply.  The DGC
+// update does, and the build leaves nvcc's --fmad on, which would
+// contract m*v + g into one FFMA that rounds once and differs from the
+// plain version in the last bit; so it is written with __fmul_rn and
+// __fadd_rn, which nvcc never contracts.  The build must not use
+// -use_fast_math (it flushes denormals).
 //
 // What bounds them on an H100: bytes.  Quantize moves 12.25 bytes an
 // element (g and r read, r written, a quarter byte of codes) for about 6
-// f32 operations; dequantize 4.25 bytes for about 4.  At the codec
-// stage's key sizes (384 to 3,145,728 elements) the bound is 0.1 to 11
-// us, under the host's cost of a launch, so the design keeps the launch
-// short: a plain C entry point per function (ctypes, no PyTorch headers),
-// a grid sized to the work (one block of 256 threads for 384 elements;
-// see BLOCKS_PER_SM below), no device query after the first call.  The
-// body moves each byte once, 16 bytes a thread where the pointers allow:
+// f32 operations; dequantize 4.25 bytes for about 4; the DGC update 20
+// bytes (v, u, g read, v and u written) for 3.  At the codec stage's key
+// sizes (384 to 3,145,728 elements) the bound is 0.1 to 11 us, under the
+// host's cost of a launch, so the design keeps the launch short: a plain
+// C entry point per function (ctypes, no PyTorch headers), a grid sized
+// to the work (one block of 256 threads for 384 elements; see
+// BLOCKS_PER_SM below), no device query after the first call.  The body
+// moves each byte once, 16 bytes a thread where the pointers allow:
 //  - quantize, consecutive: a thread reads one float4 of g and of r and
 //    writes one float4 of residual and one packed byte; neighbouring
 //    threads on neighbouring addresses;
@@ -44,7 +52,12 @@
 //    thread, and hands the bytes round by shuffles so that each of its
 //    four float4 stores is 512 contiguous bytes a warp;
 //  - dequantize, strided: a thread reads one word and writes one float4
-//    into each lane row.
+//    into each lane row;
+//  - DGC update: a thread reads one float4 each of v, u and g and writes
+//    one float4 each of v' and u'; the first block takes the n mod 4
+//    tail.  The outputs may be the inputs themselves (the codec stage
+//    updates its velocity and accumulator in place): a thread reads its
+//    elements before it writes them, and no other thread touches them.
 // A pointer off a 16-byte boundary (a view at a 4-byte offset, a code
 // buffer at any byte) takes the scalar form of the same kernel: one
 // element, or one byte, at a time.
@@ -283,6 +296,53 @@ dequant_strided(const uint8_t* __restrict__ packed, float* __restrict__ out,
   }
 }
 
+// ---- DGC momentum update -------------------------------------------------
+
+// m*v + g and u + v', each rounded on its own (never one FFMA)
+__device__ __forceinline__ float dgc_v(float v, float g, float m) {
+  return __fadd_rn(__fmul_rn(m, v), g);
+}
+
+// VEC: all five pointers 16-byte aligned, one float4 of each operand a
+// thread, the first block's first n mod 4 threads also take the tail;
+// else one element a thread.  v_out may be v and u_out may be u, so
+// those four are not __restrict__.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+dgc_update(const float* v, const float* u, const float* __restrict__ g,
+           float* v_out, float* u_out, long long n, float m) {
+  long long e = first_thread();
+  if (VEC) {
+    const long long n4 = n >> 2;
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    const float4* u4 = reinterpret_cast<const float4*>(u);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    for (long long i = e; i < n4; i += all_threads()) {
+      const float4 vv = v4[i], uu = u4[i], gg = g4[i];
+      const float4 vn = make_float4(dgc_v(vv.x, gg.x, m), dgc_v(vv.y, gg.y, m),
+                                    dgc_v(vv.z, gg.z, m), dgc_v(vv.w, gg.w, m));
+      reinterpret_cast<float4*>(v_out)[i] = vn;
+      reinterpret_cast<float4*>(u_out)[i] =
+          make_float4(__fadd_rn(uu.x, vn.x), __fadd_rn(uu.y, vn.y),
+                      __fadd_rn(uu.z, vn.z), __fadd_rn(uu.w, vn.w));
+    }
+    e += 4 * n4;  // the tail: elements 4*n4 .. n-1
+    if (e < n) {
+      const float vn = dgc_v(v[e], g[e], m);
+      const float ue = u[e];
+      v_out[e] = vn;
+      u_out[e] = __fadd_rn(ue, vn);
+    }
+  } else {
+    for (; e < n; e += all_threads()) {
+      const float vn = dgc_v(v[e], g[e], m);
+      const float ue = u[e];
+      v_out[e] = vn;
+      u_out[e] = __fadd_rn(ue, vn);
+    }
+  }
+}
+
 // ---- launch --------------------------------------------------------------
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -402,5 +462,24 @@ extern "C" int geo_dequantize_2bit(const uint8_t* packed, float* out,
     dequant_consecutive_scalar<<<grid_for((n + 3) >> 2, bytes, device),
                                  THREADS, 0, s>>>(packed, out, n, t);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v_out and u_out f32 [n] are the caller's and may be v and u
+// themselves (no other overlap); returns the launch's cudaError_t.
+extern "C" int geo_dgc_update(const float* v, const float* u, const float* g,
+                              float* v_out, float* u_out, long long n,
+                              float m, int device, void* stream) {
+  if (n <= 0) return 0;
+  DeviceGuard guard(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long bytes = 20 * n;
+  if (aligned(v, 16) && aligned(u, 16) && aligned(g, 16) &&
+      aligned(v_out, 16) && aligned(u_out, 16))
+    dgc_update<true><<<grid_for((n + 3) >> 2, bytes, device), THREADS, 0,
+                       s>>>(v, u, g, v_out, u_out, n, m);
+  else
+    dgc_update<false><<<grid_for(n, bytes, device), THREADS, 0, s>>>(
+        v, u, g, v_out, u_out, n, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@ Runs the full HiPS topology (parties × workers + global tier) in one
 process over the in-proc fabric, one thread per worker, FSA sync.  The
 merge lanes, the global optimizer and the WAN codec stage run on the
 torch backend of ``--device`` (CUDA unless ``--device cpu``); 2-bit and
-BSC push compression run the Triton codec kernels on CUDA.
+BSC push compression run the CUDA C++ codec kernels on CUDA.
 
 Examples:
     python -m geomx_tpu_torch.examples.cnn --parties 2 --workers 2 --steps 20

@@ -7,7 +7,7 @@ over the in-proc fabric, one thread per worker.  Worker compute, the
 merge lanes, the global optimizer and the WAN codec stage run on
 ``--device`` (CUDA unless ``--device cpu``); ``--attn-impl flash`` runs
 attention on the hand CUDA flash-attention kernels, 2-bit and BSC push
-compression the Triton codec kernels.  MoE layers (``--moe-top-k``) are
+compression the CUDA C++ codec kernels.  MoE layers (``--moe-top-k``) are
 not ported yet and raise.
 
 Examples:

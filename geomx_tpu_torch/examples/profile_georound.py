@@ -9,8 +9,9 @@ once under ``torch.profiler`` (device time by kernel).  Every figure is
 the long run minus the short one, divided by the difference in steps,
 so set-up, the first barrier and shutdown cancel and what is left is a
 steady-state step.  Reports wall time per step, device time by kernel
-and by group (worker compute, codec kernels, optimizer and merge
-arithmetic, flash attention, host↔device copies), and the device's
+and by group (worker compute, the 2-bit codec kernels, the DGC update,
+BSC's top-k, optimizer and merge arithmetic, flash attention,
+host↔device copies), and the device's
 idle share
 (1 − device time / wall time, both per steady step; device time above
 wall time is an error, not a zero).
@@ -34,7 +35,9 @@ import os
 import subprocess
 import sys
 
-CODEC_KERNELS = ("_quant_kernel", "_dequant_kernel", "_dgc_kernel")
+# the kernels of csrc/quantize.cu, by their (demangled) names
+CODEC_KERNELS = ("quant_consecutive", "quant_strided")   # also dequant_*
+DGC_KERNELS = ("dgc_update<",)
 FLASH_KERNELS = ("fwd_kernel<", "delta_kernel<", "dkdv_kernel<",
                  "dq_kernel<", "fwd_tc_kernel<", "dkdv_tc_kernel<",
                  "dq_tc_kernel<")
@@ -48,7 +51,9 @@ LM_FLAGS = ["--vocab", "8192", "--d-model", "384", "--layers", "4",
 
 def _group(name: str) -> str:
     low = name.lower()
-    if name.startswith(CODEC_KERNELS):
+    if any(k in name for k in DGC_KERNELS):
+        return "dgc_update"
+    if any(k in name for k in CODEC_KERNELS):
         return "codec_kernels"
     if any(k in name for k in FLASH_KERNELS):
         return "flash_attention"

@@ -1,5 +1,5 @@
-"""The CUDA 2-bit quantize and dequantize under other grid shapes, on one
-CUDA card.
+"""The CUDA codec kernels (2-bit quantize and dequantize, DGC update)
+under other grid shapes, on one CUDA card.
 
     python -m geomx_tpu_torch.examples.time_codec_grid [--variants 8,8:always,65536]
 
@@ -11,8 +11,10 @@ source with other values of the two constants (``--variants``, each
 leaves the grid uncapped) into the kernel cache, holds each
 copy bitwise against the plain versions, and reports each copy's device
 time a call (``torch.profiler``, 10 calls) of the consecutive-layout
-quantize and dequantize on aligned tensors at 401,408, 3,145,728 and
-50,000,000 elements, the copies in the order given and then reversed.
+quantize and dequantize and of the DGC update (20 bytes an element, so
+its calls leave L2 at a smaller size) on aligned tensors at 401,408,
+3,145,728 and 50,000,000 elements, the copies in the order given and
+then reversed.
 Writes ``chiprun_out/codec_grid.json`` (under the current directory) and
 prints the card's name and power limit.  Needs a CUDA card and ``nvcc``.
 """
@@ -30,6 +32,7 @@ import numpy as np
 
 SIZES = (401_408, 3_145_728, 50_000_000)
 THRESHOLD = 0.5
+MOMENTUM = 0.9
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -106,9 +109,12 @@ def main(argv=None) -> int:
                              .astype(np.float32)).to(dev)
         ref_p, ref_r = Q.quantize_2bit_ref(g, r, THRESHOLD, "consecutive")
         ref_d = Q.dequantize_2bit_ref(ref_p, n, THRESHOLD, "consecutive")
+        v = r * 3.0
+        ref_v, ref_u = Q.dgc_update_ref(v, r, g, MOMENTUM)
         p = torch.empty_like(ref_p)
         r_out = torch.empty_like(r)
         d = torch.empty_like(r)
+        v_out, u_out = torch.empty_like(r), torch.empty_like(r)
 
         def quant(lib):
             return lambda: lib.geo_quantize_2bit(
@@ -120,29 +126,41 @@ def main(argv=None) -> int:
                 ref_p.data_ptr(), d.data_ptr(), n, THRESHOLD, 0, dev.index,
                 stream)
 
+        def dgc(lib):
+            return lambda: lib.geo_dgc_update(
+                v.data_ptr(), r.data_ptr(), g.data_ptr(), v_out.data_ptr(),
+                u_out.data_ptr(), n, MOMENTUM, dev.index, stream)
+
         rec = out["device_ms"][str(n)] = {}
         order = list(VARIANTS) + list(reversed(VARIANTS))
         for name in order:
             lib = libs[name]
             assert quant(lib)() == 0 and dequant(lib)() == 0
+            assert dgc(lib)() == 0
             torch.cuda.synchronize()
             assert torch.equal(p, ref_p) and torch.equal(
                 r_out.view(torch.int32), ref_r.view(torch.int32)), name
             assert torch.equal(d.view(torch.int32),
                                ref_d.view(torch.int32)), name
+            assert torch.equal(v_out.view(torch.int32),
+                               ref_v.view(torch.int32)) and torch.equal(
+                u_out.view(torch.int32), ref_u.view(torch.int32)), name
             for fn, mk in (("quantize_2bit", quant),
-                           ("dequantize_2bit", dequant)):
+                           ("dequantize_2bit", dequant),
+                           ("dgc_update", dgc)):
                 ms = _device_ms(mk(lib))
                 rec.setdefault(name, {}).setdefault(fn, []).append(ms)
         for name, fns in rec.items():
             nbytes = {"quantize_2bit": 12 * n + (n + 3) // 4,
-                      "dequantize_2bit": 4 * n + (n + 3) // 4}
+                      "dequantize_2bit": 4 * n + (n + 3) // 4,
+                      "dgc_update": 20 * n}
             print(f"n={n} {name}: " + "; ".join(
                 f"{fn} " + ", ".join(f"{t:.5f}" for t in ts) + " ms ("
                 + ", ".join(f"{100 * nbytes[fn] / HBM_BYTES_PER_S / (t * 1e-3):.1f}"
                             for t in ts) + " % of 3.35 TB/s)"
                 for fn, ts in fns.items()), flush=True)
-        del g, r, ref_p, ref_r, ref_d, p, r_out, d
+        del (g, r, v, ref_p, ref_r, ref_d, ref_v, ref_u, p, r_out, d, v_out,
+             u_out)
         torch.cuda.empty_cache()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "codec_grid.json"), "w") as f:

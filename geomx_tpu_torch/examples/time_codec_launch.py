@@ -1,34 +1,27 @@
-"""Where the host time of one 2-bit codec call goes, on one CUDA card.
+"""Where the host time of one codec kernel call goes, on one CUDA card.
 
-    python -m geomx_tpu_torch.examples.time_codec_launch [--routes triton,cuda]
+    python -m geomx_tpu_torch.examples.time_codec_launch
         [--sizes 384,401408] [--calls 10000]
 
-At the codec stage's key sizes a quantize or dequantize call costs more
-on the host than on the card.  For each route this script times the
+At the codec stage's key sizes a quantize, dequantize or DGC update
+call costs more on the host than on the card.  This script times the
 whole call and each piece of it with ``time.perf_counter`` over
 ``--calls`` back-to-back calls (three rounds, the median kept), on
-tensors on the card, in the consecutive layout:
-
-- ``triton`` — the Triton kernels of ``ops/kernels/quantize_triton.py``
-  as the dispatcher reached them before the CUDA kernels took their
-  place (now a yardstick no path reaches): the dispatcher's layout
-  check, route and f32 rounding of the threshold; the wrapper's tensor
-  checks; the two ``torch.empty`` calls; Triton's launcher (argument
-  specialisation, cache lookup, grid) with outputs made beforehand; the
-  lock and launch counter;
-- ``cuda`` — the CUDA kernels of ``csrc/quantize.cu`` through
-  ``ops/kernels/quantize_cuda.py``: the dispatcher's route test, the
-  wrapper's checks, the allocations, the current stream's raw handle
-  (and, beside it, ``torch.cuda.current_stream(dev).cuda_stream``, which
-  the wrapper does not call), the ``ctypes`` call alone (outputs made
-  beforehand) and the counter.
+tensors on the card, for the CUDA kernels of ``csrc/quantize.cu``
+through ``ops/kernels/quantize_cuda.py`` (quantize and dequantize in
+the consecutive layout; the DGC update out of place, and in place as
+the codec stage calls it, ``out`` = its inputs): the dispatcher's route
+test, the wrapper's checks (for the DGC update in place also the
+overlap checks), the allocations, the current stream's raw handle (and,
+beside it, ``torch.cuda.current_stream(dev).cuda_stream``, which the
+wrapper does not call), the ``ctypes`` call alone (outputs made
+beforehand) and the counter.
 
 Each piece runs alone in its own loop, so the pieces need not add up to
 the whole; the sum is printed beside it.  The whole call is also timed
 with CUDA events over the same loop.  Writes
 ``chiprun_out/codec_launch.json`` (under the current directory) and
-prints the card's name and power limit.  Needs a CUDA card (and
-``triton`` or ``nvcc`` for the route it times).
+prints the card's name and power limit.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -43,6 +36,7 @@ import time
 import numpy as np
 
 THRESHOLD = 0.5
+MOMENTUM = 0.9
 LAYOUT = "consecutive"
 ROUNDS = 3
 
@@ -83,78 +77,8 @@ def _event_us(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls * 1e3
 
 
-def triton_pieces(g, r, packed, n: int) -> dict:
-    """{function: {piece: callable}} of the Triton route."""
-    import torch
-
-    from geomx_tpu_torch.ops import quantize as Q
-    from geomx_tpu_torch.ops.kernels import quantize_triton as K
-
-    t = Q._f32(THRESHOLD)
-    nb = K._packed_len(n, False)
-    K.quantize_2bit(g, r, t, LAYOUT)          # builds the kernels
-    K.dequantize_2bit(packed, n, t, LAYOUT)
-    triton, quant, dequant, _ = K._get()
-    p_out = torch.empty(nb, dtype=torch.uint8, device=g.device)
-    r_out = torch.empty_like(r)
-    d_out = torch.empty(n, dtype=torch.float32, device=g.device)
-    grid = (triton.cdiv(nb, K.BLOCK_BYTES),)
-
-    def dispatch():
-        Q._check_layout(LAYOUT)
-        Q._route(g)
-        Q._f32(THRESHOLD)
-
-    def lock_count(name):
-        def fn():
-            with K._mu:
-                K.LAUNCHES[name] += 1
-        return fn
-
-    return {
-        "quantize_2bit": {
-            "whole call": lambda: (Q._check_layout(LAYOUT), Q._route(g),
-                                   K.quantize_2bit(g, r, Q._f32(THRESHOLD),
-                                                   LAYOUT)),
-            "wrapper": lambda: K.quantize_2bit(g, r, t, LAYOUT),
-            "dispatcher checks": dispatch,
-            "tensor checks": lambda: (
-                K._strided(LAYOUT),
-                K._check("grad", g, torch.float32, n, g.device),
-                K._check("residual", r, torch.float32, n, g.device),
-                K._packed_len(n, False)),
-            "allocations": lambda: (
-                torch.empty(nb, dtype=torch.uint8, device=g.device),
-                torch.empty_like(r)),
-            "launcher": lambda: quant[(triton.cdiv(nb, K.BLOCK_BYTES),)](
-                g, r, p_out, r_out, n, nb, t, STRIDED=False,
-                BLOCK_B=K.BLOCK_BYTES),
-            "lock and counter": lock_count("quantize_2bit"),
-        },
-        "dequantize_2bit": {
-            "whole call": lambda: (Q._check_layout(LAYOUT), Q._route(packed),
-                                   K.dequantize_2bit(packed, n,
-                                                     Q._f32(THRESHOLD),
-                                                     LAYOUT)),
-            "wrapper": lambda: K.dequantize_2bit(packed, n, t, LAYOUT),
-            "dispatcher checks": dispatch,
-            "tensor checks": lambda: (
-                K._strided(LAYOUT), K._packed_len(n, False),
-                packed.numel(),
-                K._check("packed", packed, torch.uint8, packed.numel(),
-                         packed.device)),
-            "allocations": lambda: torch.empty(n, dtype=torch.float32,
-                                               device=g.device),
-            "launcher": lambda: dequant[grid](
-                packed, d_out, n, nb, t, STRIDED=False,
-                BLOCK_B=K.BLOCK_BYTES),
-            "lock and counter": lock_count("dequantize_2bit"),
-        },
-    }
-
-
 def cuda_pieces(g, r, packed, n: int) -> dict:
-    """{function: {piece: callable}} of the CUDA route."""
+    """{function: {piece: callable}} of the CUDA kernels."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
@@ -166,6 +90,12 @@ def cuda_pieces(g, r, packed, n: int) -> dict:
     p_out = torch.empty(nb, dtype=torch.uint8, device=g.device)
     r_out = torch.empty_like(r)
     d_out = torch.empty(n, dtype=torch.float32, device=g.device)
+    m = Q._f32(MOMENTUM)
+    v = r * 3.0
+    v_out, u_out = torch.empty_like(v), torch.empty_like(r)
+    vi, ui = v.clone(), r.clone()     # updated in place, call after call
+    named = (("velocity", vi), ("accum", ui), ("grad", g), ("v_out", vi),
+             ("u_out", ui))
     dev = g.device
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
 
@@ -212,17 +142,43 @@ def cuda_pieces(g, r, packed, n: int) -> dict:
                 stream),
             "lock and counter": count("dequantize_2bit"),
         },
+        "dgc_update": {
+            "whole call": lambda: Q.dgc_update(v, r, g, MOMENTUM),
+            "wrapper": lambda: C.dgc_update(v, r, g, m),
+            "dispatcher checks": lambda: g.is_cuda,
+            "tensor checks": lambda: C._check_f32(
+                ("velocity", v), ("accum", r), ("grad", g)),
+            "allocations": lambda: (
+                torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty(n, dtype=torch.float32, device=dev)),
+            "stream handle": lambda: torch._C._cuda_getCurrentRawStream(
+                dev.index),
+            "ctypes call": lambda: lib.geo_dgc_update(
+                v.data_ptr(), r.data_ptr(), g.data_ptr(), v_out.data_ptr(),
+                u_out.data_ptr(), n, m, dev.index, stream),
+            "lock and counter": count("dgc_update"),
+        },
+        "dgc_update in place": {
+            "whole call": lambda: Q.dgc_update(vi, ui, g, MOMENTUM,
+                                               out=(vi, ui)),
+            "wrapper": lambda: C.dgc_update(vi, ui, g, m, out=(vi, ui)),
+            "dispatcher checks": lambda: g.is_cuda,
+            "tensor checks": lambda: C._check_f32(*named),
+            "overlap checks": lambda: C._refuse_overlap(named, n),
+            "stream handle": lambda: torch._C._cuda_getCurrentRawStream(
+                dev.index),
+            "ctypes call": lambda: lib.geo_dgc_update(
+                vi.data_ptr(), ui.data_ptr(), g.data_ptr(), vi.data_ptr(),
+                ui.data_ptr(), n, m, dev.index, stream),
+            "lock and counter": count("dgc_update"),
+        },
     }
-
-
-ROUTES = {"triton": triton_pieces, "cuda": cuda_pieces}
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--routes", default="triton,cuda")
     ap.add_argument("--sizes", default="384,401408")
     ap.add_argument("--calls", type=int, default=10_000)
     args = ap.parse_args(argv)
@@ -235,7 +191,6 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    routes = args.routes.split(",")
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"nvidia_smi": smi, "calls": args.calls, "rounds": ROUNDS,
            "layout": LAYOUT, "by_size": {}}
@@ -248,23 +203,19 @@ def main(argv=None) -> int:
         packed = torch.from_numpy(rng.integers(0, 256, (n + 3) // 4)
                                   .astype(np.uint8)).to(dev)
         rec = out["by_size"][str(n)] = {}
-        for route in routes:
-            pieces = ROUTES[route](g, r, packed, n)
-            for fn_name, parts in pieces.items():
-                host = {p: _host_us(f, args.calls) for p, f in parts.items()}
-                ev = _event_us(parts["whole call"], args.calls)
-                rest = sum(v for p, v in host.items()
-                           if p not in ("whole call", "wrapper",
-                                        "stream object"))
-                rec[f"{route} {fn_name}"] = {
-                    "host_us": host, "event_us_whole_call": ev,
-                    "sum_of_pieces_us": rest}
-                print(f"n={n} {route} {fn_name}: whole call "
-                      f"{host['whole call']:.2f} us host, {ev:.2f} us "
-                      f"events; " + "; ".join(
-                          f"{p} {v:.2f}" for p, v in host.items()
-                          if p != "whole call")
-                      + f" (pieces sum {rest:.2f})", flush=True)
+        for fn_name, parts in cuda_pieces(g, r, packed, n).items():
+            host = {p: _host_us(f, args.calls) for p, f in parts.items()}
+            ev = _event_us(parts["whole call"], args.calls)
+            rest = sum(v for p, v in host.items()
+                       if p not in ("whole call", "wrapper",
+                                    "stream object"))
+            rec[fn_name] = {"host_us": host, "event_us_whole_call": ev,
+                            "sum_of_pieces_us": rest}
+            print(f"n={n} {fn_name}: whole call {host['whole call']:.2f} us "
+                  f"host, {ev:.2f} us events; " + "; ".join(
+                      f"{p} {v:.2f}" for p, v in host.items()
+                      if p != "whole call")
+                  + f" (pieces sum {rest:.2f})", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "codec_launch.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -612,7 +612,8 @@ class DeviceBscCodec(DeviceCodec):
         if v is None or int(v.shape[0]) != n:
             v = torch.zeros(n, dtype=torch.float32, device=g.device)
             u = torch.zeros(n, dtype=torch.float32, device=g.device)
-        v, u = _q.dgc_update(v, u, g, self.momentum)
+        # in place, as the host BscCodec updates them
+        _q.dgc_update(v, u, g, self.momentum, out=(v, u))
         k = max(1, int(self.ratio * n))
         idx = torch.topk(u.abs(), k).indices
         vals = u[idx]

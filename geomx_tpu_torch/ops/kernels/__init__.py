@@ -1,2 +1,2 @@
-"""Hand-written GPU kernels (Triton, and CUDA C++ bound with ctypes),
-built at their first launch."""
+"""Hand-written GPU kernels (CUDA C++ built with nvcc and bound with
+ctypes), built at their first launch."""

@@ -1,11 +1,9 @@
 """WAN codec kernels: 2-bit quantize with residual feedback, 2-bit
 dequantize, and the fused DGC momentum update.
 
-Each function here is a dispatcher: a CUDA tensor goes to a hand
-kernel — 2-bit quantize and dequantize to the CUDA C++ kernels of
-:mod:`geomx_tpu_torch.ops.kernels.quantize_cuda`, the DGC update to the
-Triton kernel of :mod:`geomx_tpu_torch.ops.kernels.quantize_triton` —
-and a CPU tensor to the plain PyTorch version beside it (``*_ref``).
+Each function here is a dispatcher: a CUDA tensor goes to its hand
+CUDA C++ kernel (:mod:`geomx_tpu_torch.ops.kernels.quantize_cuda`), a
+CPU tensor to the plain PyTorch version beside it (``*_ref``).
 There is no fallback between them: a CUDA tensor launches its kernel or
 raises.
 
@@ -29,12 +27,12 @@ Codes: 1 means ``+t``, 2 means ``-t``, 0 means zero.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from geomx_tpu_torch.ops.kernels import quantize_cuda, quantize_triton
+from geomx_tpu_torch.ops.kernels import quantize_cuda
 
 LANES = 1024            # lanes of one row of the strided layout
 QROWS = 128             # rows of one strided block
@@ -127,12 +125,21 @@ def dequantize_2bit_ref(packed: torch.Tensor, n: int,
 
 
 def dgc_update_ref(velocity: torch.Tensor, accum: torch.Tensor,
-                   grad: torch.Tensor, momentum: float = 0.9
+                   grad: torch.Tensor, momentum: float = 0.9,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DGC momentum correction: ``v = m·v + g; u = u + v`` (two rounded
-    operations, never one fused multiply-add).  Returns ``(v, u)``."""
+    operations, never one fused multiply-add).  Returns ``(v, u)``, new
+    tensors or ``out = (v_out, u_out)`` written (which may be the inputs
+    themselves)."""
     v = velocity.reshape(-1).float() * _f32(momentum) + grad.reshape(-1).float()
-    return v, accum.reshape(-1).float() + v
+    u = accum.reshape(-1).float() + v
+    if out is None:
+        return v, u
+    v_out, u_out = out
+    v_out.copy_(v)
+    u_out.copy_(u)
+    return v_out, u_out
 
 
 # ---- dispatchers -----------------------------------------------------------
@@ -148,7 +155,8 @@ def _route(t: torch.Tensor) -> str:
 # The codec stage calls these once per key per party, where the host's
 # share of a call is most of its cost: a CUDA tensor goes straight to the
 # wrapper, which checks the layout and the tensors and passes the
-# threshold through ctypes as an f32 (rounded as np.float32 rounds it).
+# threshold or the momentum through ctypes as an f32 (rounded as
+# np.float32 rounds it).
 
 def quantize_2bit(grad: torch.Tensor, residual: torch.Tensor,
                   threshold: float = 0.5, layout: str = "consecutive"
@@ -169,9 +177,10 @@ def dequantize_2bit(packed: torch.Tensor, n: int, threshold: float = 0.5,
 
 
 def dgc_update(velocity: torch.Tensor, accum: torch.Tensor,
-               grad: torch.Tensor, momentum: float = 0.9
+               grad: torch.Tensor, momentum: float = 0.9,
+               out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if _route(grad) == "kernel":
-        return quantize_triton.dgc_update(velocity, accum, grad,
-                                          _f32(momentum))
-    return dgc_update_ref(velocity, accum, grad, momentum)
+    if grad.is_cuda:
+        return quantize_cuda.dgc_update(velocity, accum, grad, momentum, out)
+    _route(grad)
+    return dgc_update_ref(velocity, accum, grad, momentum, out)

@@ -16,7 +16,8 @@ and ``tests/test_device_codec.py``, held against the reference engines:
   and the JAX device codecs; BSC frames byte-identical to the JAX device
   codec on tie-free input; every frame cross-decodes bitwise between the
   port, the host codecs and the JAX codec stage; the decode gates raise
-  the same ``CodecError``;
+  the same ``CodecError``; BSC's velocity and accumulator, updated in
+  place, match an out-of-place loop of the plain DGC update bitwise;
 - backend choice: ``auto`` → torch (raises without CUDA), ``torch:cpu``
   by name, ``deterministic`` → numpy, unknown names rejected; a torch
   backend refuses to move its optimizer or codec stage to the host.
@@ -41,6 +42,7 @@ from geomx_tpu_torch.kvstore.backend import (NumpyBackend, make_merge_backend,
                                              resolve_merge_backend)
 from geomx_tpu_torch.kvstore.torch_backend import (CodecStage, DeviceWeight,
                                                    TorchBackend)
+from geomx_tpu_torch.ops.quantize import dgc_update_ref
 
 
 def _cfg(**kw):
@@ -325,6 +327,35 @@ def test_bsc_frames_match_jax_and_cross_decode_bitwise():
                 == want.tobytes()
             assert np.asarray(jstage.decode("bsc", 1, frame, 2000)).tobytes() \
                 == want.tobytes()
+
+
+def test_bsc_state_updated_in_place_as_the_out_of_place_loop():
+    """Three pushes of one key: each frame, the velocity and the
+    accumulator equal, bit for bit, a loop of the out-of-place plain DGC
+    update (momentum 0.9, so the product rounds) and the same exact
+    top-k; the codec updates its two state tensors in place."""
+    stage = _be().make_codec_stage(_cfg())
+    codec = stage.make_push_codec({"type": "bsc", "ratio": 0.05,
+                                   "momentum": 0.9})
+    n, k = 2000, 100
+    v, u = torch.zeros(n), torch.zeros(n)
+    ptrs = None
+    for rnd in range(3):
+        g = torch.from_numpy(_tie_free(n, 20 + rnd))
+        frame = codec.compress(3, g)
+        v, u = dgc_update_ref(v, u, g, 0.9)
+        idx = torch.topk(u.abs(), k).indices
+        vals = u[idx]
+        v[idx] = 0.0
+        u[idx] = 0.0
+        want = torch.cat([vals, idx.to(torch.int32).view(torch.float32)])
+        assert frame.tobytes() == want.numpy().tobytes()
+        state = (codec._velocity[3], codec._accum[3])
+        assert state[0].numpy().tobytes() == v.numpy().tobytes()
+        assert state[1].numpy().tobytes() == u.numpy().tobytes()
+        if ptrs is None:
+            ptrs = [t.data_ptr() for t in state]
+        assert [t.data_ptr() for t in state] == ptrs
 
 
 def test_compress_never_writes_its_input():

@@ -9,11 +9,13 @@
   residuals bitwise (``-0.0`` kept), and decode bitwise against both;
 - DGC on dyadic inputs, where a fused multiply-add and two rounded
   operations agree, so the comparison is bitwise whatever XLA fuses;
-- the dispatcher: CPU tensors take the plain version, the kernel
-  wrappers (CUDA C++ for quantize and dequantize, Triton for DGC)
-  refuse a CPU tensor, and a CUDA card (when present) holds each Triton
-  kernel against its plain version bitwise (the CUDA kernels are held
-  in ``test_torch_quantize_cuda.py``).
+- the dispatcher: CPU tensors take the plain version, the CUDA C++
+  kernel wrappers refuse a CPU tensor, and a CUDA card (when present)
+  holds each kernel against its plain version bitwise on aligned
+  tensors (offset views, in place and more sizes in
+  ``test_torch_quantize_cuda.py``);
+- the plain DGC update writes into ``out``, in place, bitwise as out
+  of place.
 
 Tolerance everywhere: exact (bit patterns compared).
 """
@@ -31,7 +33,6 @@ from geomx_tpu.ops.quantize import (dequantize_2bit_tpu, dgc_update_tpu,
                                     quantize_2bit_tpu)
 from geomx_tpu_torch.ops import quantize as Q
 from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
 THR = 0.5
 
@@ -137,18 +138,20 @@ def test_inputs_are_not_modified():
 def test_dispatch_cpu_uses_plain_version_and_kernel_refuses_cpu():
     g, r = _inputs(64)
     tg, tr = torch.from_numpy(g), torch.from_numpy(r)
-    before = (C.launches(), K.launches())
+    before = C.launches()
     Q.quantize_2bit(tg, tr, THR, "consecutive")
     Q.dequantize_2bit(torch.zeros(16, dtype=torch.uint8), 64, THR)
     Q.dgc_update(tr, tr, tg, 0.9)
-    assert (C.launches(), K.launches()) == before  # no kernel on the host
+    Q.dgc_update(tr.clone(), tr.clone(), tg, 0.9, out=(tr.clone(),
+                                                       tr.clone()))
+    assert C.launches() == before  # no kernel on the host
     with pytest.raises(ValueError, match="CUDA"):
         C.quantize_2bit(tg, tr, THR, "consecutive")
     with pytest.raises(ValueError, match="CUDA"):
         C.dequantize_2bit(torch.zeros(16, dtype=torch.uint8), 64, THR,
                           "consecutive")
     with pytest.raises(ValueError, match="CUDA"):
-        K.dgc_update(tr, tr, tg, 0.9)
+        C.dgc_update(tr, tr, tg, 0.9)
     with pytest.raises(ValueError, match="layout"):
         Q.quantize_2bit(tg, tr, THR, "rows")
 
@@ -170,6 +173,25 @@ def test_unknown_layout_raises_on_every_route(fn, mod):
                               "stride")
 
 
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+def test_dgc_in_place_equals_out_of_place_bitwise(momentum):
+    """``out=(v, u)`` updates the inputs themselves; the result is the
+    out-of-place one bit for bit, signed zeros included."""
+    g, r = _inputs(4097, seed=3)
+    rng = np.random.default_rng(4)
+    v = (rng.standard_normal(4097) * 0.3).astype(np.float32)
+    v[0::7] = -0.0
+    tv, tu, tg = (torch.from_numpy(a.copy()) for a in (v, r, g))
+    want_v, want_u = Q.dgc_update_ref(tv, tu, tg, momentum)
+    got = Q.dgc_update(tv, tu, tg, momentum, out=(tv, tu))
+    assert got[0] is tv and got[1] is tu
+    assert _bits(tv.numpy()) == _bits(want_v.numpy())
+    assert _bits(tu.numpy()) == _bits(want_u.numpy())
+    z = tu.numpy()[0::7]
+    assert (z == 0).sum() > 100 and np.signbit(z[z == 0]).all()
+    assert _bits(tg.numpy()) == _bits(g)
+
+
 def test_dequantize_rejects_short_payload():
     with pytest.raises(ValueError, match="bytes"):
         Q.dequantize_2bit(torch.zeros(3, dtype=torch.uint8), 64, THR)
@@ -178,21 +200,21 @@ def test_dequantize_rejects_short_payload():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 4097, 401_408])
 def test_kernels_match_plain_versions_on_card(n):
-    """On a CUDA card: each Triton kernel against its plain version on
-    the same device tensors, bitwise, in both layouts."""
+    """On a CUDA card: each CUDA kernel against its plain version on the
+    same device tensors, bitwise, in both layouts."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (Triton kernels have no CPU mode)")
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     g, r = _inputs(n, seed=n)
     tg, tr = torch.from_numpy(g).cuda(), torch.from_numpy(r).cuda()
     for layout in Q.LAYOUTS:
-        pk, rk = K.quantize_2bit(tg, tr, THR, layout)
+        pk, rk = C.quantize_2bit(tg, tr, THR, layout)
         pp, rp = Q.quantize_2bit_ref(tg, tr, THR, layout)
         assert torch.equal(pk, pp)
         assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
-        dk = K.dequantize_2bit(pk, n, THR, layout)
+        dk = C.dequantize_2bit(pk, n, THR, layout)
         dp = Q.dequantize_2bit_ref(pk, n, THR, layout)
         assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
-    vk, uk = K.dgc_update(tr, tr * 2, tg, 0.9)
+    vk, uk = C.dgc_update(tr, tr * 2, tg, 0.9)
     vp, up = Q.dgc_update_ref(tr, tr * 2, tg, 0.9)
     assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
     assert torch.equal(uk.view(torch.int32), up.view(torch.int32))

@@ -1,13 +1,15 @@
-"""The CUDA C++ 2-bit quantize and dequantize wrapper
-(``geomx_tpu_torch/ops/kernels/quantize_cuda.py``).
+"""The CUDA C++ codec kernels' wrapper: 2-bit quantize and dequantize
+and the DGC update (``geomx_tpu_torch/ops/kernels/quantize_cuda.py``).
 
 On the CPU: the wrapper refuses every input its kernels do not take —
 a CPU tensor, a wrong dtype, a 2-D or non-contiguous tensor, a short
-code buffer, an unknown layout — before it loads or builds anything, and
-importing it builds nothing.  On a CUDA card (tests marked ``cuda``):
-both kernels bitwise equal to their plain versions in both layouts, on
-views at every 4-byte offset (f32) and every byte offset (codes), and a
-dispatcher call launches the CUDA kernels, never the Triton yardstick.
+code buffer, an unknown layout, a length mismatch, a DGC output that
+overlaps an input other than its own or the other output — before it
+loads or builds anything, and importing it builds nothing.  On a CUDA
+card (tests marked ``cuda``): every kernel bitwise equal to its plain
+version (quantize and dequantize in both layouts, the DGC update out of
+place and in place), on views at every 4-byte offset (f32) and every
+byte offset (codes), and a dispatcher call launches the CUDA kernels.
 
 Tolerance everywhere: exact (bit patterns compared).
 """
@@ -21,7 +23,6 @@ import torch
 
 from geomx_tpu_torch.ops import quantize as Q
 from geomx_tpu_torch.ops.kernels import quantize_cuda as C
-from geomx_tpu_torch.ops.kernels import quantize_triton as K
 
 THR = 0.5
 
@@ -58,6 +59,13 @@ def test_import_builds_nothing():
         "B.NvccLibrary.load = lambda self: calls.append(self)\n"
         "from geomx_tpu_torch.ops import quantize\n"
         "from geomx_tpu_torch.ops.kernels import quantize_cuda as C\n"
+        "import torch\n"
+        "try:\n"
+        "    C.dgc_update(*(torch.zeros(4) for _ in range(3)), 0.9)\n"
+        "except ValueError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise SystemExit('a CPU tensor was not refused')\n"
         "assert calls == [] and C.LIB._lib is None, calls\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -133,6 +141,47 @@ def test_unknown_layout_refused_before_any_build(fn, no_build):
                               "Strided")
 
 
+def _overlapping_out():
+    """Inputs, and a ``v_out`` one element into ``velocity``'s bytes."""
+    base = _f32(65)
+    return base[:64], _f32(), _f32(), (base[1:], _f32())
+
+
+REFUSED_DGC = {
+    "cpu tensor": (lambda: (_f32(), _f32(), _f32(), None), ValueError,
+                   "CUDA"),
+    "dtype": (lambda: (_f32(), _f32().double(), _f32(), None), TypeError,
+              "float32"),
+    "out dtype": (lambda: (_f32(), _f32(), _f32(), (_f32(), _f32().half())),
+                  TypeError, "float32"),
+    "2-D": (lambda: (_f32(), _f32(), _f32().view(8, 8), None), ValueError,
+            "1-D"),
+    "non-contiguous": (lambda: (_f32(128)[::2], _f32(), _f32(), None),
+                       ValueError, "contiguous"),
+    "length mismatch": (lambda: (_f32(64), _f32(64), _f32(65), None),
+                        ValueError, "elements"),
+    "out partly overlapping its input": (_overlapping_out, ValueError,
+                                         "v_out overlaps velocity"),
+    "out overlapping another input": (
+        lambda: (lambda v, u, g: (v, u, g, (u, _f32())))(
+            _f32(), _f32(), _f32()), ValueError, "v_out overlaps accum"),
+    "in place, on the CPU": (
+        lambda: (lambda v, u: (v, u, _f32(), (v, u)))(_f32(), _f32()),
+        ValueError, "CUDA tensors"),
+    "v_out overlapping u_out": (
+        lambda: (lambda w: (_f32(), _f32(), _f32(), (w, w)))(_f32()),
+        ValueError, "u_out overlaps v_out"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED_DGC))
+def test_dgc_refuses_before_any_build(case, no_build):
+    make, exc, match = REFUSED_DGC[case]
+    v, u, g, out = make()
+    with pytest.raises(exc, match=match):
+        C.dgc_update(v, u, g, 0.9, out)
+
+
 def _view(a: np.ndarray, off: int, dev) -> torch.Tensor:
     """``a`` on the card as a view ``off`` elements into a larger tensor:
     its first element ``off * itemsize`` bytes past an aligned start."""
@@ -184,16 +233,44 @@ def test_kernels_bitwise_equal_to_plain_versions_on_card(n):
 
 
 @pytest.mark.cuda
-def test_dispatcher_launches_cuda_kernels_not_triton():
+@pytest.mark.parametrize("n", [1, 5, 4097, 401_408])
+def test_dgc_bitwise_equal_to_plain_version_on_card(n):
+    """The DGC update out of place and in place (``out`` = its inputs),
+    on views at element offsets 0-3, at momentum 0.9 (where one fused
+    multiply-add would differ in the last bit) and 0.0, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g, r = _inputs(n, seed=n)
+    v = (np.random.default_rng(n + 1).standard_normal(n) * 0.3).astype(
+        np.float32)
+    v[0::13] = -0.0
+    for off in range(4):
+        tv, tu, tg = (_view(a, off, dev) for a in (v, r, g))
+        for m in (0.9, 0.0):
+            vp, up = Q.dgc_update_ref(tv, tu, tg, m)
+            vk, uk = C.dgc_update(tv, tu, tg, m)
+            vi, ui = _view(v, off, dev), _view(r, off, dev)
+            got = C.dgc_update(vi, ui, tg, m, out=(vi, ui))
+            torch.cuda.synchronize()
+            assert got[0] is vi and got[1] is ui
+            for a, b, what in ((vk, vp, "v"), (uk, up, "u"),
+                               (vi, vp, "v in place"),
+                               (ui, up, "u in place")):
+                assert _bits_equal(a, b), f"n={n} off={off} m={m}: {what}"
+
+
+@pytest.mark.cuda
+def test_dispatcher_launches_the_three_cuda_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     g, r = _inputs(4097)
     tg, tr = torch.from_numpy(g).cuda(), torch.from_numpy(r).cuda()
-    cuda0, triton0 = C.launches(), K.launches()
+    before = C.launches()
     packed, _ = Q.quantize_2bit(tg, tr, THR)
     Q.dequantize_2bit(packed, 4097, THR)
+    v, u = tr.clone(), tr * 2
+    Q.dgc_update(v, u, tg, 0.9, out=(v, u))
     torch.cuda.synchronize()
-    cuda1, triton1 = C.launches(), K.launches()
-    assert cuda1["quantize_2bit"] == cuda0["quantize_2bit"] + 1
-    assert cuda1["dequantize_2bit"] == cuda0["dequantize_2bit"] + 1
-    assert triton1 == triton0
+    assert C.launches() == {name: count + 1
+                            for name, count in before.items()}
