@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    three, and on the sweep for quantize and dequantize;
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
-   tensor cores, f32 on FMAs) against their plain versions in bf16 and
+   tensor cores, the f32 forward on them too as three TF32 products of
+   split operands (3xTF32), the f32 backward on FMAs) against their
+   plain versions in bf16 and
    f32 at (B,T,H,Dh) = (8,128,6,64) (the flagship LM), (4,2048,16,128)
    (the MFU config), (2,1000,3,64) (a ragged tail), (1,2047,2,128) (T
    not a multiple of the 128-row tile), (1,1500,24,128) (the same on
@@ -43,12 +45,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel does) than the unrounded one; the ptxas log must show no
    spill in a tensor-core kernel; CUDA-event times of kernel, plain version
    and ``scaled_dot_product_attention`` (a yardstick only, never on the
-   port's path), each beside its bound, and at the LM's and the MFU
-   shape in both dtypes each kernel's device time a call
-   (``torch.profiler`` over 10 calls);
+   port's path), each beside its bound (the f32 forward's: three TF32
+   products at 495 TFLOP/s), and at the LM's and the MFU shape in both
+   dtypes each kernel's device time a call (``torch.profiler`` over 10
+   calls); the f32 forward at the MFU shape must take less event time
+   than its plain version and than the FMA kernel it replaced, as last
+   measured (``FMA_LAST_MS``);
 3b. block attention — the CUDA kernel of a ring hop's partial block
-   (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 on the tensor
-   cores, f32 on FMAs) against its plain version in bf16 and f32, for
+   (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 and f32, 3xTF32,
+   on the tensor cores) against its plain version in bf16 and f32, for
    the three hop geometries (diagonal ``(0, 0)``, below ``(Tk, 0)``,
    above ``(0, Tq)``), a block straddling the diagonal off the tile grid
    ``(0, Tq//2 + 3)`` and non-causal, at (B,Tq,Tk,H,D) =
@@ -65,7 +70,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    each beside its bound, and at the main shape in both dtypes the
    kernel's device time a call in each geometry; the bf16 kernel at the
    main shape, "below", must take less event time than its plain version
-   and than 0.30 ms;
+   and than 0.30 ms, the f32 kernel there less than its plain version and
+   than the FMA kernel it replaced (``FMA_LAST_MS``);
 4. full-width reference step — one forward and backward of the port's
    transformer at the MFU config's widths (d 2048, 16 heads, 8 layers,
    d_ff 8192, seq 2048, batch 4, bf16, ~424M parameters) with
@@ -86,6 +92,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    steps' wall times, and the last step's device time by kernel
    (``torch.profiler``, the device's own entries only), in which the
    block kernels must show;
+4c. the f32 step — phase 4's widths and tokens in ``compute_dtype=
+   float32`` (fresh weights from the same seed): one forward and
+   backward with ``attn_impl="flash"`` (the f32 flash forward on the
+   tensor cores, the f32 backward on FMAs) and one with ``"dense"``
+   (TF32 off for every torch product), then the same weights through
+   ``make_apply`` on the ``sp = 4`` mesh with ring attention and
+   ``"flash"`` (the f32 block kernel on every hop); loss within 1e-4
+   relative and every leaf's gradient within 1e-3 relative L2 of dense
+   for each; the launch counts, set to 0 just before each pass and read
+   just after it, must be 8 f32 flash forwards and backwards and no
+   bf16 launch, and 8 × 4² = 128 f32 block launches;
 5. reference check — a 2×2 geo-round of the port's Simulation with a
    shared dyadic gradient function, on the card (torch backend, kernels)
    and on the host (numpy backend, host codecs): weights bitwise equal
@@ -95,11 +112,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    server, full-width CNN, FSA, Adam, a few steps under 2bit and again
    under bsc) and ``geomx_tpu_torch.examples.lm`` (the flagship LM at
    full width, 10,276,224 parameters, flash attention, bf16, FSA, Adam,
-   8 steps under 2bit); the launch counts are set to 0 just before each
-   run and read just after it, and each path must launch its own
-   kernels (2bit: quantize and dequantize; bsc: the DGC update, exactly
-   2 parties × 10 keys a step; LM: flash forward and backward, quantize
-   and dequantize).
+   8 steps under 2bit, and again in its default f32 for 3 steps); the
+   launch counts are set to 0 just before each run and read just after
+   it, and each path must launch its own kernels (2bit: quantize and
+   dequantize; bsc: the DGC update, exactly 2 parties × 10 keys a step;
+   LM: flash forward and backward, quantize and dequantize, in bf16 and
+   in f32).
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -122,7 +140,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+# the f32 kernels whose products are three TF32 products (3xTF32): their
+# bound counts 3 x the function's operations at the TF32 peak
+TF32X3_KERNELS = ("flash_fwd", "block_attn_fwd")
 SIZES = (1, 4097, 401_408, 50_000_000)
 MAIN_N = 401_408              # largest leaf of the CNN: the main path's size
 # the CUDA codec kernels are also checked at the LM's key sizes (384,
@@ -167,6 +189,12 @@ LM_ARGS = ["--parties", "2", "--workers", "2", "--global-servers", "1",
            "--lr", "3e-3", "--compression", "2bit", "--attn-impl", "flash",
            "--compute-dtype", "bfloat16", "--seed", "0"]
 LM_PARAMS = 10_276_224
+# the same LM in its default f32, where --attn-impl flash reaches the f32
+# flash forward
+LM_F32_STEPS = 3
+LM_F32_ARGS = [a for flag, val in zip(LM_ARGS[0::2], LM_ARGS[1::2])
+               for a in (flag, {"--steps": str(LM_F32_STEPS),
+                                "--compute-dtype": "float32"}.get(flag, val))]
 # block attention: (B, Tq, Tk, H, D) of the MFU config's ring hop at
 # sp = 4 (the main path), the flagship LM's at sp = 4, a ragged tail, one
 # token, and Tq != Tk both ways
@@ -174,9 +202,23 @@ BLOCK_SHAPES = ((4, 512, 512, 16, 128), (8, 32, 32, 6, 64),
                 (2, 250, 250, 3, 64), (1, 1, 1, 1, 64),
                 (2, 300, 77, 3, 128), (1, 70, 400, 2, 64))
 BLOCK_MAIN = ((4, 512, 512, 16, 128), "bfloat16", "below")
+BLOCK_MAIN_F32 = ((4, 512, 512, 16, 128), "float32", "below")
 # the bf16 kernel at the main shape, "below", must beat its plain version
 # and this event time (ms)
 BLOCK_MAIN_MAX_MS = 0.30
+# event times (ms) of the f32 FMA kernels that the 3xTF32 tensor-core
+# kernels replaced, as last measured (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, kernel table): the flash forward at the MFU shape and the
+# block "below" at the MFU hop; each new kernel must beat them there
+FMA_LAST_MS = {"flash_fwd": 7.0180, "block_attn_fwd": 1.2300}
+# phase 4c, f32 everywhere: flash (and the sp ring) against dense.  They
+# differ by summation order, the forward's 3xTF32 products and the tensor
+# cores' f32 accumulation, which the backward's delta = rowsum(dO * O)
+# amplifies in the gradients where dP is close to delta (near-uniform
+# attention at initialisation); the gates are tighter than phase 4's
+# bf16 ones (1e-3, 5e-2), and PERF.md records what the step reaches
+F32_STEP_LOSS_TOL = 1e-4
+F32_STEP_GRAD_TOL = 1e-3
 SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
 SP_ADAM_STEPS = 3
 
@@ -384,12 +426,12 @@ def _codec_kernel_of(name: str):
 
 
 def _below_gates(what: str, ms: float, plain_ms: float,
-                 replaced_ms: float) -> None:
+                 replaced_ms: float, replaced: str = "Triton") -> None:
     """A kernel's event time must be below its plain version's and the
-    Triton kernel's it replaced."""
+    last measured one of the kernel it replaced (Triton, or f32 FMA)."""
     assert ms < min(plain_ms, replaced_ms), (
         f"{what}: CUDA {ms:.4f} ms, not below its plain version's "
-        f"{plain_ms:.4f} ms and the Triton kernel's {replaced_ms:.4f} ms")
+        f"{plain_ms:.4f} ms and the {replaced} kernel's {replaced_ms:.4f} ms")
 
 
 def time_kernels(dev, sizes, iters_for) -> dict:
@@ -544,9 +586,18 @@ def flash_costs(shape, dtype: str) -> dict:
             "flash_bwd": (5 * 2 * D * pairs, 8 * n * es + rows)}
 
 
-def _bound(flops: float, nbytes: float, dtype: str):
-    peak = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
-    b_ops = flops / peak * 1e3
+def _bound(flops: float, nbytes: float, dtype: str, name: str):
+    """(least time in ms, what bounds it) of kernel ``name``'s function:
+    bf16 products at the bf16 tensor-core peak; the f32 forward kernels'
+    as three TF32 products each (3xTF32) at the TF32 peak; the f32 flash
+    backward's on FMAs at the f32 peak."""
+    if dtype == "bfloat16":
+        ops, peak = flops, BF16_OPS_PER_S
+    elif name in TF32X3_KERNELS:
+        ops, peak = 3 * flops, TF32_OPS_PER_S
+    else:
+        ops, peak = flops, F32_OPS_PER_S
+    b_ops = ops / peak * 1e3
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes
                                  else "bytes")
@@ -687,7 +738,7 @@ def check_flash(dev) -> dict:
                                     for n, t in by.items()))
             for name, (ms, plain_ms, lib_ms) in times.items():
                 flops, nbytes = costs[name]
-                bound_ms, bound_by = _bound(flops, nbytes, dt)
+                bound_ms, bound_by = _bound(flops, nbytes, dt, name)
                 rec[name] = {"max_abs_err": err[name], "tol": tol[name],
                              "ms": ms, "plain_ms": plain_ms,
                              "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -698,6 +749,10 @@ def check_flash(dev) -> dict:
                     f"{ms:.4f} ms ({rec[name]['tflop_per_s']:.2f} TFLOP/s), "
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
+            if (shape, dt) == (FLASH_MFU[0], "float32"):
+                f = rec["flash_fwd"]
+                _below_gates(f"flash_fwd {shape} f32", f["ms"],
+                             f["plain_ms"], FMA_LAST_MS["flash_fwd"], "FMA")
             out["by_shape"][f"{shape} {dt}"] = rec
             del q, k, v, do, o, lse, ro, rlse, grads, refs, sq, sk, sv, so
             torch.cuda.empty_cache()
@@ -819,7 +874,7 @@ def check_block(dev) -> dict:
 
     ptx = _ptxas(KB.LIB)
     log(f"block kernel: ptxas: {'; '.join(ptx)}")
-    spills = _spilling(KB.LIB.log, "block_attn_tc_kernel")
+    spills = _spilling(KB.LIB.log, "_tc_kernel")
     assert not spills, f"tensor-core block kernels spill: {spills}"
     out = {"ptxas": ptx, "by_case": {}}
     for shape in BLOCK_SHAPES:
@@ -853,7 +908,8 @@ def check_block(dev) -> dict:
                     sq, sk, sv, attn_mask=mask), it)
                 flops, nbytes = block_costs(Tq, Tk, B, H, D, qo, ko, causal,
                                             dt)
-                bound_ms, bound_by = _bound(flops, nbytes, dt)
+                bound_ms, bound_by = _bound(flops, nbytes, dt,
+                                            "block_attn_fwd")
                 rec = {"max_abs_err": max(errs.values()), "errs": errs,
                        "tols": allows, "rel_l2": rels, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -887,6 +943,9 @@ def check_block(dev) -> dict:
         f"block {BLOCK_MAIN}: kernel {main['ms']:.4f} ms, not below its "
         f"plain version's {main['plain_ms']:.4f} ms and "
         f"{BLOCK_MAIN_MAX_MS} ms")
+    main = out["by_case"][" ".join(str(x) for x in BLOCK_MAIN_F32)]
+    _below_gates(f"block {BLOCK_MAIN_F32}", main["ms"], main["plain_ms"],
+                 FMA_LAST_MS["block_attn_fwd"], "FMA")
     return out
 
 
@@ -1065,7 +1124,7 @@ def check_sp_step(dev, refs: dict) -> dict:
     # the last step runs under the profiler: its device time by kernel
     by_kernel = _device_ms_by_kernel(adam_step)
     device_ms = sum(by_kernel.values())
-    # block_attn_tc_kernel (bf16) and block_attn_kernel (f32)
+    # block_attn_tc_kernel (bf16) and block_attn_f32_tc_kernel (f32)
     block_ms = sum(v for k, v in by_kernel.items() if "block_attn" in k)
     assert block_ms > 0, "the profiler saw no block kernel in the sp step"
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
@@ -1082,6 +1141,69 @@ def check_sp_step(dev, refs: dict) -> dict:
                                      "block_kernel_ms": block_ms,
                                      "top_kernels_ms": top}}
     del p, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 4c: the f32 step, single device and sequence parallel --------
+
+def check_f32_step(dev) -> dict:
+    """The MFU-width step in f32: flash against dense on one device, then
+    the ring over the ``sp`` mesh against the same dense step; the
+    launch counts around each pass are its own."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.data import synthetic_lm
+    from geomx_tpu_torch.models.transformer import (
+        TransformerConfig, init_params, make_lm_grad_fn)
+    from geomx_tpu_torch.parallel import make_mesh
+
+    cfg = TransformerConfig(**MFU_WIDTHS, attn_impl="flash",
+                            compute_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    tokens = synthetic_lm(n=MFU_BATCH, seq=cfg.max_seq, vocab=cfg.vocab,
+                          seed=0)
+    mesh = make_mesh(SP_MESH, devices=[dev] * SP_MESH["sp"])
+
+    def step(c, m=None):
+        fn = make_lm_grad_fn(c, m)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = fn(params, tokens, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return float(loss), grads, wall, all_launches()
+
+    ld, gd, td, _ = step(dataclasses.replace(cfg, attn_impl="dense"))
+    out = {"loss_dense": ld, "wall_s_dense": td}
+    L, sp = cfg.n_layers, SP_MESH["sp"]
+    want = {"flash": {"flash_fwd_f32": L, "flash_bwd_f32": L},
+            "sp_ring": {"block_attn_fwd_f32": L * sp ** 2}}
+    for name, c, m in (
+            ("flash", cfg, None),
+            ("sp_ring", dataclasses.replace(cfg, sp_attn="ring"), mesh)):
+        lo, go, to, counts = step(c, m)
+        rel_loss, rel = _rel_diffs(lo, go, ld, gd)
+        worst = max(rel, key=rel.get)
+        log(f"f32 step {name}: loss {lo:.6f} dense {ld:.6f} (rel "
+            f"{rel_loss:.2e}, tol {F32_STEP_LOSS_TOL:g}); worst leaf grad "
+            f"rel L2 {rel[worst]:.2e} ({worst}, tol {F32_STEP_GRAD_TOL:g}); "
+            f"wall {to:.3f} s (dense {td:.3f} s, first calls); launches "
+            f"{counts}")
+        assert math.isfinite(lo) and rel_loss <= F32_STEP_LOSS_TOL, \
+            f"f32 {name} loss differs from dense"
+        assert rel[worst] <= F32_STEP_GRAD_TOL, \
+            f"f32 {name} grad of {worst} differs from dense"
+        launched = {k: v for k, v in counts.items() if v}
+        assert launched == want[name], \
+            f"f32 {name}: launches {launched}, not {want[name]}"
+        out[name] = {"loss": lo, "rel_loss": rel_loss, "grad_rel_l2": rel,
+                     "wall_s": to, "launches": counts}
+        del go
+    del gd, params
     torch.cuda.empty_cache()
     return out
 
@@ -1208,17 +1330,17 @@ def run_georound(compression: str) -> dict:
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
 
 
-def run_lm_georound() -> dict:
+def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
     """The flagship LM through ``geomx_tpu_torch.examples.lm``."""
     import torch
 
     from geomx_tpu_torch.examples.lm import build_parser, train
 
-    args = build_parser().parse_args(LM_ARGS)
+    args = build_parser().parse_args(argv)
     stamps = []
     out = train(args, log=lambda msg: stamps.append(time.perf_counter()))
     losses = [l for h in out["histories"].values() for l, _ in h]
-    assert len(losses) == 4 * LM_STEPS, "a worker did not finish its steps"
+    assert len(losses) == 4 * steps, "a worker did not finish its steps"
     assert all(math.isfinite(x) for x in losses), "non-finite loss"
     assert out["n_params"] == LM_PARAMS, out["n_params"]
     params = out["params"]
@@ -1229,17 +1351,21 @@ def run_lm_georound() -> dict:
     for s in out["sim_stats"]["local"] + out["sim_stats"]["global"]:
         assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
         assert s["codec_host_bytes"] == 0, f"codec host copies: {s}"
-    steady = (len(stamps) - 3) / (stamps[-1] - stamps[2])
+    # steady state from the third step on; a run of 3 steps has none
+    steady = ((len(stamps) - 3) / (stamps[-1] - stamps[2])
+              if len(stamps) > 3 else None)
     tokens_per_step = 4 * args.batch * args.seq
-    wan = out["wan"]["wan_send_bytes"] / LM_STEPS
+    wan = out["wan"]["wan_send_bytes"] / steps
     first = [h[0][0] for h in out["histories"].values()]
     last = [h[-1][0] for h in out["histories"].values()]
-    log(f"geo-round lm 2bit: {LM_STEPS} steps, {out['n_params']} params, "
-        f"loss {np.mean(first):.4f} -> {np.mean(last):.4f}, "
-        f"{steady:.3f} steps/s steady ({steady * tokens_per_step:.0f} "
-        f"tokens/s), {out['seconds']:.2f} s total, WAN bytes/step {wan:.0f}")
+    log(f"geo-round lm 2bit {args.compute_dtype}: {steps} steps, "
+        f"{out['n_params']} params, loss {np.mean(first):.4f} -> "
+        f"{np.mean(last):.4f}, "
+        + (f"{steady:.3f} steps/s steady ({steady * tokens_per_step:.0f} "
+           f"tokens/s), " if steady else "")
+        + f"{out['seconds']:.2f} s total, WAN bytes/step {wan:.0f}")
     return {"steps_per_s": steady,
-            "tokens_per_s": steady * tokens_per_step,
+            "tokens_per_s": steady and steady * tokens_per_step,
             "wan_bytes_per_step": wan, "n_params": out["n_params"],
             "loss_first": float(np.mean(first)),
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
@@ -1250,7 +1376,9 @@ def run_lm_georound() -> dict:
 PATH_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
                 "bsc": ("dgc_update",),
                 "lm": ("flash_fwd", "flash_bwd", "quantize_2bit",
-                       "dequantize_2bit")}
+                       "dequantize_2bit"),
+                "lm_f32": ("flash_fwd_f32", "flash_bwd_f32", "quantize_2bit",
+                           "dequantize_2bit")}
 
 KERNEL_ROWS = {
     "quantize_2bit": ("geomx_tpu/ops/quantize.py:39 _quant_kernel "
@@ -1267,13 +1395,17 @@ KERNEL_ROWS = {
     "block_attn_fwd": ("geomx_tpu/ops/block_attention.py:72 _kernel "
                        "(pallas_call :141, flash_block_attention :154)"),
 }
+# the f32 kernels: the same TPU kernels, in f32
+KERNEL_ROWS.update({f"{name}_f32": KERNEL_ROWS[name] for name in (
+    "flash_fwd", "flash_bwd", "block_attn_fwd")})
 _CODEC = ("cuda", "geomx_tpu_torch/csrc/quantize.cu")
 _FLASH = ("cuda", "geomx_tpu_torch/csrc/flash_attention.cu")
 # (route, source) of each kernel
+_BLOCK = ("cuda", "geomx_tpu_torch/csrc/block_attention.cu")
 ROUTES = {"quantize_2bit": _CODEC, "dequantize_2bit": _CODEC,
           "dgc_update": _CODEC, "flash_fwd": _FLASH, "flash_bwd": _FLASH,
-          "block_attn_fwd": ("cuda",
-                             "geomx_tpu_torch/csrc/block_attention.cu")}
+          "flash_fwd_f32": _FLASH, "flash_bwd_f32": _FLASH,
+          "block_attn_fwd": _BLOCK, "block_attn_fwd_f32": _BLOCK}
 # launches a path must make exactly: the DGC update once per key per
 # party per step
 PATH_EXACT = {"bsc": {"dgc_update": 2 * CNN_KEYS * STEPS}}
@@ -1346,14 +1478,17 @@ def main() -> int:
     del refs
     torch.cuda.empty_cache()
     log(f"phase 4b done in {time.perf_counter() - t0:.1f} s")
+    f32_step = check_f32_step(dev)
+    log(f"phase 4c done in {time.perf_counter() - t0:.1f} s")
 
     check_reference()
 
     geo, launches = {}, {}
     for path, names in PATH_KERNELS.items():
         reset_all_launches()
-        geo[path] = (run_lm_georound() if path == "lm"
-                     else run_georound(path))
+        geo[path] = (run_lm_georound() if path == "lm" else
+                     run_lm_georound(LM_F32_ARGS, LM_F32_STEPS)
+                     if path == "lm_f32" else run_georound(path))
         counts = all_launches()
         geo[path]["launches"] = counts
         log(f"main-path launches under {path}: {counts}")
@@ -1365,8 +1500,11 @@ def main() -> int:
             assert counts[name] == want, \
                 f"{name} launched {counts[name]} times on the {path} " \
                 f"path, not {want}"
-    # the block kernel's main path is phase 4b's sequence-parallel step
+    # the block kernels' main paths are the sequence-parallel steps of
+    # phases 4b (bf16) and 4c (f32)
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
+    launches["block_attn_fwd_f32"] = \
+        f32_step["sp_ring"]["launches"]["block_attn_fwd_f32"]
     assert set(launches) == set(KERNEL_ROWS), "a kernel has no main path"
 
     rows = []
@@ -1382,22 +1520,27 @@ def main() -> int:
             else:
                 where.update(inplace_ms=t["inplace_ms"],
                              torch_inplace_ms=t["torch_inplace_ms"])
-        elif name == "block_attn_fwd":
-            b_shape, b_dt, b_geo = BLOCK_MAIN
+        elif name.startswith("block_attn_fwd"):
+            b_shape, b_dt, b_geo = (BLOCK_MAIN_F32 if name.endswith("_f32")
+                                    else BLOCK_MAIN)
             t = block["by_case"][f"{b_shape} {b_dt} {b_geo}"]
-            # the error over every shape, dtype and geometry checked
+            # the error over every shape and geometry checked in its dtype
             t = dict(t, max_abs_err=max(
-                r["max_abs_err"] for r in block["by_case"].values()))
+                r["max_abs_err"] for case, r in block["by_case"].items()
+                if b_dt in case))
             where = {"shape": list(b_shape), "dtype": b_dt,
                      "geometry": b_geo, "device_ms": t["device_ms"]}
         else:
-            t = flash["by_shape"][f"{main_shape} {main_dt}"][name]
-            # the error over every shape and dtype checked
+            fn, dt = ((name[:-4], "float32") if name.endswith("_f32")
+                      else (name, main_dt))
+            t = flash["by_shape"][f"{main_shape} {dt}"][fn]
+            # the error over every shape checked in its dtype
             t = dict(t, max_abs_err=max(
-                r[name]["max_abs_err"] for r in flash["by_shape"].values()))
-            mfu_shape, mfu_dt = FLASH_MFU
-            m = flash["by_shape"][f"{mfu_shape} {mfu_dt}"][name]
-            where = {"shape": list(main_shape), "dtype": main_dt,
+                r[fn]["max_abs_err"] for shape, r in flash["by_shape"].items()
+                if dt in shape))
+            mfu_shape, mfu_dt = FLASH_MFU[0], dt
+            m = flash["by_shape"][f"{mfu_shape} {mfu_dt}"][fn]
+            where = {"shape": list(main_shape), "dtype": dt,
                      "at_mfu_shape": {
                          "shape": list(mfu_shape), "dtype": mfu_dt,
                          **{key: m[key] for key in (
@@ -1414,7 +1557,7 @@ def main() -> int:
               "times_by_size": {str(n): v for n, v in times.items()},
               "lm_push_sweep": sweep,
               "flash": flash, "block": block, "full_width_step": full,
-              "sp_step": sp,
+              "sp_step": sp, "f32_step": f32_step,
               "georound": geo, "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

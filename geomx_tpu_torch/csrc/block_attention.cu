@@ -16,7 +16,8 @@
 // the global positions of q's and k's first tokens.  Outputs, all f32,
 // contiguous and unnormalised: m [B, Tq, H] the row max of the scaled
 // scores, l [B, Tq, H] = sum_k exp(s - m), o [B, Tq, H, D] =
-// sum_k round(exp(s - m)) v, where round() is to the input type.  With
+// sum_k round(exp(s - m)) v, where round() is to the input type (the
+// identity in f32, whose products are to f32 accuracy).  With
 // causal, a score whose query position is before its key position is
 // exactly -1e30 (not -inf) and takes part in the max and the sums, so a
 // fully masked row gives m = -1e30, l = Tk and o = sum_k v: the junk the
@@ -67,16 +68,27 @@
 //     of 128-row tiles covers every SM once, else one (64-row tiles), the
 //     flash kernels' rule; the producer warpgroup gives its registers to
 //     two consumers (setmaxnreg), so neither spills.
-// f32: plain FMAs from shared memory (no tensor cores: their f32 path
-// is TF32, which the port's f32 convention excludes), q, k, v
-// contiguous: one block of 256 threads per (64-row query tile, b*h); each
-// tile row is owned by 4 neighbouring lanes of one warp, each lane
-// holding 16 of the 64 columns of a score tile, so a row's max and sum
-// are two __shfl_xor steps; the same two passes (row max, then p into l
-// and round(p) v into o), with no tile skipped; query rows past Tq are
-// loaded as zeros and never stored, key columns past Tk are left out of
-// the max and the sums.  It does the scores twice on FMAs, about a
-// hundred times its bound.
+// f32 (block_attn_f32_tc_kernel): the tensor cores too, every product to
+// f32 accuracy (the port's f32 convention: 3xTF32, three TF32 wgmma
+// products of split operands, hopper_tiles.cuh; a single TF32 product
+// is not allowed).  At the MFU hop in f32 the bytes are 67.4 MB, 0.020
+// ms, and the products 3 x 8.6 GFLOP at 495 TF32 TFLOP/s, 0.052 ms: the
+// operations bound "below" and "diagonal", the bytes "above" (the FMA
+// kernel's bound was 0.128 ms).  The same tiles and pipeline as the f32
+// flash forward (flash_attention.cu, hopper_tiles.cuh's Tf32Pipe): f32
+// TMA boxes of 32 columns read the ring's views in place, three warps
+// split Q and K into hi and lo and transpose V into Vt a step ahead, one
+// consumer warpgroup of 64 query rows runs key steps of 32.
+//   * one pass with an online softmax: rounding p to f32 is the
+//     identity, so nothing needs the whole-row max before p is formed
+//     (the bf16 path's second pass exists for that alone); an online
+//     softmax changes bits only within f32 rounding.  JAX's order on the
+//     fragment as in bf16 (scale, then exactly -1e30 or -inf), the first
+//     tile holds key 0, so the running max is finite from it on: the
+//     rescale exp(m - m') never meets -inf - (-inf), and a fully masked
+//     row takes exp(MASK - MASK) = 1 at every step, so l = Tk exactly;
+//   * the same skip rule, tile order and fully masked tile (V alone,
+//     O += 1 V, with hi = 1 and lo = 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,72 +101,6 @@ namespace {
 
 constexpr float MASK = -1e30f;
 
-// ---- f32 on FMAs -------------------------------------------------------------
-
-constexpr int BR = 64;        // rows of a tile (queries or keys)
-constexpr int NT = 256;       // threads a block: 4 lanes per tile row
-constexpr int PAD = 4;        // floats of padding per [BR][D] tile row
-constexpr int SP = BR + 1;    // row stride of the [BR][BR] p tile
-constexpr int NC = BR / 4;    // score columns a lane holds
-
-template <typename E> __device__ __forceinline__ float to_f(E x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-
-// x rounded through the input type (the identity for f32)
-template <typename E> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-
-// Rows row0 .. row0+BR-1 of head h of batch b of a contiguous [B, T, H, D]
-// tensor into a [BR][D + PAD] f32 tile; rows past n are zeros.
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(float* dst, const E* src, int b,
-                                          int h, int H, int row0, int n) {
-  const int64_t base = (int64_t(b) * n * H + h) * D;
-  const int64_t st = int64_t(H) * D;
-  for (int i = threadIdx.x; i < BR * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int t = row0 + r;
-    dst[r * (D + PAD) + d] = t < n ? to_f<E>(src[base + t * st + d]) : 0.f;
-  }
-}
-
-// The lane's NC scaled and masked scores of row r against the key tile
-// starting at k0: column k0 + qd + 4j.  Columns past Tk are -inf (left
-// out of the max; the caller drops them from the sums).
-template <int D>
-__device__ __forceinline__ void scores(float (&sc)[NC], const float* Qs,
-                                       const float* Ks, int r, int qd,
-                                       int q_pos, int k0, int Tk,
-                                       int k_off, bool causal, float scale) {
-#pragma unroll
-  for (int j = 0; j < NC; ++j) sc[j] = 0.f;
-  const float* a = Qs + r * (D + PAD);
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(a + d);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(
-          Ks + (qd + 4 * j) * (D + PAD) + d);
-      sc[j] += av.x * bv.x + av.y * bv.y + av.z * bv.z + av.w * bv.w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int kc = k0 + qd + 4 * j;
-    if (kc >= Tk)
-      sc[j] = -INFINITY;
-    else if (causal && q_pos < k_off + kc)
-      sc[j] = MASK;
-    else
-      sc[j] *= scale;
-  }
-}
-
 __device__ __forceinline__ float row_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -163,98 +109,6 @@ __device__ __forceinline__ float row_max(float x) {
 __device__ __forceinline__ float row_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <typename E, int D>
-__global__ void __launch_bounds__(NT)
-block_attn_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                  const E* __restrict__ v, float* __restrict__ m_out,
-                  float* __restrict__ l_out, float* __restrict__ o_out,
-                  int H, int Tq, int Tk, int q_off, int k_off, int causal,
-                  float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BR * (D + PAD);
-  float* Vs = Ks + BR * (D + PAD);
-  float* Ps = Vs + BR * (D + PAD);
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const int q0 = blockIdx.x * BR, qi = q0 + r;
-  const int q_pos = q_off + qi;
-  const int nk = (Tk + BR - 1) / BR;
-  const bool cz = causal != 0;
-
-  load_tile<E, D>(Qs, q, b, h, H, q0, Tq);
-
-  // pass 1: the row max over the whole of Tk
-  float m = -INFINITY;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();   // the last tile's readers are done
-    load_tile<E, D>(Ks, k, b, h, H, k0, Tk);
-    __syncthreads();
-    float sc[NC];
-    scores<D>(sc, Qs, Ks, r, qd, q_pos, k0, Tk, k_off, cz, scale);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) m = fmaxf(m, sc[j]);
-  }
-  m = row_max(m);
-
-  // pass 2: p = exp(s - m) into l, round(p) v into o
-  float l = 0.f;
-  float4 acc[D / 16];
-#pragma unroll
-  for (int jj = 0; jj < D / 16; ++jj)
-    acc[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();
-    load_tile<E, D>(Ks, k, b, h, H, k0, Tk);
-    load_tile<E, D>(Vs, v, b, h, H, k0, Tk);
-    __syncthreads();
-    float sc[NC];
-    scores<D>(sc, Qs, Ks, r, qd, q_pos, k0, Tk, k_off, cz, scale);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      // a column past Tk is -inf: p = 0, and V's row there is zeros
-      const float p = sc[j] == -INFINITY ? 0.f : expf(sc[j] - m);
-      l += p;
-      Ps[r * SP + qd + 4 * j] = round_to<E>(p);
-    }
-    __syncwarp();   // row r of Ps was written by this warp's 4 lanes
-    const float* pr = Ps + r * SP;
-#pragma unroll 4
-    for (int c = 0; c < BR; ++c) {
-      const float pc = pr[c];
-      const float* x = Vs + c * (D + PAD) + 4 * qd;
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + 16 * jj);
-        acc[jj].x += pc * xv.x;
-        acc[jj].y += pc * xv.y;
-        acc[jj].z += pc * xv.z;
-        acc[jj].w += pc * xv.w;
-      }
-    }
-  }
-  l = row_sum(l);
-
-  if (qi < Tq) {
-    const int64_t row = (int64_t(b) * Tq + qi) * H + h;
-    if (qd == 0) {
-      m_out[row] = m;
-      l_out[row] = l;
-    }
-    float* dst = o_out + row * D + 4 * qd;
-#pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj)
-      *reinterpret_cast<float4*>(dst + 16 * jj) = acc[jj];
-  }
-}
-
-constexpr size_t smem_bytes(int D) {
-  return (3 * size_t(BR) * (D + PAD) + size_t(BR) * SP) * sizeof(float);
 }
 
 // ---- bf16 on the tensor cores ----------------------------------------------
@@ -333,17 +187,17 @@ __device__ __forceinline__ void pv(float (&o)[D / 2],
 // score (query position before key position) is exactly MASK and a key
 // past Tk is -inf.  Element 4j + 2i + c is row qp[i], key k0 + 8j + 2qd
 // + c.  `edge` (warp-uniform) is false when no element of the tile can
-// be masked or past Tk.
-__device__ __forceinline__ void scale_mask(float (&s)[BN / 2],
-                                           const int (&qp)[2], int k0,
-                                           int qd, int Tk, int k_off,
+// be masked or past Tk.  N: the accumulator's registers (keys / 2).
+template <int N>
+__device__ __forceinline__ void scale_mask(float (&s)[N], const int (&qp)[2],
+                                           int k0, int qd, int Tk, int k_off,
                                            bool causal, bool edge,
                                            float scale) {
 #pragma unroll
-  for (int x = 0; x < BN / 2; ++x) s[x] *= scale;
+  for (int x = 0; x < N; ++x) s[x] *= scale;
   if (!edge) return;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -520,25 +374,150 @@ block_attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---- launches --------------------------------------------------------------
+// ---- f32: 3xTF32 on the tensor cores, one pass ------------------------------
 
-template <typename E, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, float* m,
-                   float* l, float* o, int B, int H, int Tq, int Tk,
-                   int q_off, int k_off, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BR - 1) / BR, B * H);
-  block_attn_kernel<E, D><<<grid, NT, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), m, l, o, H, Tq, Tk, q_off, k_off, causal,
-      scale);
-  return cudaGetLastError();
+template <int D>
+__global__ void __launch_bounds__(tc_threads(1), 1)
+block_attn_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         float* __restrict__ m_out, float* __restrict__ l_out,
+                         float* __restrict__ o_out, int H, int Tq, int Tk,
+                         int q_off, int k_off, int causal, float scale) {
+  using L = hopper::Tf32Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN, ST = L::ST;
+  extern __shared__ uint8_t smem_raw[];
+  const hopper::Tf32Pipe<D> pp(smem_raw);
+
+  // the query tiles with the most keys to run first, as the bf16 kernel
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * BM;
+  const int qe = min(q0 + BM, Tq) - 1;         // the tile's last real row
+  const int nk = (Tk + BN - 1) / BN;
+  const bool cz = causal != 0;
+  const bool masked = cz && q_off + qe < k_off;   // o = sum_k v, no score
+  const int n_kt = cz && q_off + q0 >= k_off
+                       ? min(nk, (q_off + qe - k_off) / BN + 1)
+                       : nk;
+  const int n_items = masked ? nk : n_kt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) pp.init();
+  __syncthreads();
+  if (warp == 4) {                             // the copies
+    if (lane == 0) pp.produce(&tq, &tk, &tv, q0, h, b, n_items, !masked);
+    return;
+  }
+  if (warp > 4) {                              // the splits
+    pp.convert(n_items, !masked, threadIdx.x - 5 * 32);
+    return;
+  }
+
+  const int qd = lane % 4;
+  const int r0 = 16 * warp + lane / 4;         // tile row, i = 0
+  const int qp[2] = {q_off + q0 + r0, q_off + q0 + r0 + 8};
+  const int w0 = q_off + q0 + 16 * warp;       // the warp's first row
+  float oacc[D / 2];
+  zero_regs(oacc);
+  float m[2], l[2];
+  uint32_t phi[BN / 8][4], plo[BN / 8][4];
+
+  if (masked) {
+    // p = exp(MASK - MASK) = 1 for every key below Tk; V's rows past Tk
+    // are zeros.  hi = 1 and lo = 0 make O += V exactly as 3xTF32 forms
+    // it.
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        phi[kk][x] = __float_as_uint(1.f);
+        plo[kk][x] = 0u;
+      }
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % ST;
+      mbar_wait(&pp.cv_full[st], (it / ST) & 1);
+      if (lane == 0) mbar_arrive(&pp.empty[st]);   // V is transposed
+      hopper::pv_tf32x3<D, BN>(oacc, phi, plo, pp.stage(pp.vt, it),
+                               pp.stage(pp.vt_lo, it));
+      if (lane == 0) mbar_arrive(&pp.cv_empty[st]);
+    }
+    m[0] = m[1] = MASK;
+    l[0] = l[1] = float(Tk);
+  } else {
+    float sacc[BN / 2];
+    uint32_t qa[D / 8][4];
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    mbar_wait(pp.q_ready, 0);
+    hopper::load_q_frags<D>(qa, pp.q, BM);
+    for (int it = 0; it < n_kt; ++it) {
+      const int st = it % ST, k0 = it * BN;
+      mbar_wait(&pp.cv_full[st], (it / ST) & 1);
+      hopper::qk_tf32x3<D, BN>(sacc, qa, pp.q_lo, BM, pp.stage(pp.k, it),
+                               pp.stage(pp.k_lo, it));
+      if (lane == 0) mbar_arrive(&pp.empty[st]);   // K is read
+      const bool edge = k0 + BN > Tk || (cz && w0 < k_off + k0 + BN - 1);
+      scale_mask(sacc, qp, k0, qd, Tk, k_off, cz, edge, scale);
+      // the online softmax: the first tile holds key 0, whose score is
+      // real or MASK, so the running max is finite from it on and no
+      // exp(-inf - (-inf)) is formed; on a fully masked row every step
+      // is exp(MASK - MASK) = 1
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mt = fmaxf(mt, fmaxf(sacc[4 * j + 2 * i], sacc[4 * j + 2 * i + 1]));
+        const float mn = fmaxf(m[i], row_max(mt));
+        alpha[i] = expf(m[i] - mn);            // 0 on the first tile
+        m[i] = mn;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sacc[4 * j + 2 * i + c];
+            x = expf(x - m[i]);                // past Tk: exp(-inf) = 0
+            l[i] += x;
+          }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          oacc[4 * j + 2 * i] *= alpha[i];
+          oacc[4 * j + 2 * i + 1] *= alpha[i];
+        }
+      hopper::split_frags<BN>(phi, plo, sacc);
+      hopper::pv_tf32x3<D, BN>(oacc, phi, plo, pp.stage(pp.vt, it),
+                               pp.stage(pp.vt_lo, it));
+      if (lane == 0) mbar_arrive(&pp.cv_empty[st]);   // K_lo, Vt are read
+    }
+    l[0] = row_sum(l[0]);
+    l[1] = row_sum(l[1]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    if (qi >= Tq) continue;                    // padding rows: not stored
+    const int64_t row = (int64_t(b) * Tq + qi) * H + h;
+    if (qd == 0) {
+      m_out[row] = m[i];
+      l_out[row] = l[i];
+    }
+    float* dst = o_out + row * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(oacc[4 * j + 2 * i], oacc[4 * j + 2 * i + 1]);
+  }
 }
+
+// ---- launches --------------------------------------------------------------
 
 template <int D, int NWG>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
@@ -565,6 +544,30 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, float* m,
 }
 
 template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, float* m,
+                       float* l, float* o, int B, int H, int Tq, int Tk,
+                       const Strides (&s)[3], int q_off, int k_off,
+                       int causal, float scale, cudaStream_t stream) {
+  using L = hopper::Tf32Tiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::make_bthd_map(&tq, q, B, Tq, H, D, s[0].b, s[0].t, s[0].h,
+                             L::BM, 4) ||
+      !hopper::make_bthd_map(&tk, k, B, Tk, H, D, s[1].b, s[1].t, s[1].h,
+                             L::BN, 4) ||
+      !hopper::make_bthd_map(&tv, v, B, Tk, H, D, s[2].b, s[2].t, s[2].h,
+                             L::BN, 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_attn_f32_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + L::BM - 1) / L::BM);
+  block_attn_f32_tc_kernel<D><<<grid, tc_threads(1), L::SMEM, stream>>>(
+      tq, tk, tv, m, l, o, H, Tq, Tk, q_off, k_off, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         float* m, float* l, float* o, int B, int H, int Tq,
                         int Tk, const Strides (&s)[3], int q_off, int k_off,
@@ -580,9 +583,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  strides: the
 // (b, t, h) strides in elements of q, k and v, nine values; D is
-// contiguous.  bf16 reads through TMA maps built from them (bases 16-byte
-// aligned, strides multiples of 16 bytes); f32 takes contiguous tensors
-// and ignores them.  m, l f32 [B, Tq, H] and o f32 [B, Tq, H, D] are
+// contiguous.  Both dtypes read through TMA maps built from them (bases
+// 16-byte aligned, strides multiples of 16 bytes).  m, l f32 [B, Tq, H] and o f32 [B, Tq, H, D] are
 // contiguous and written whole.  Returns a cudaError_t (0 = launched).
 extern "C" int geo_block_attn_fwd(int dtype, int head_dim, const void* q,
                                   const void* k, const void* v, float* m,
@@ -596,11 +598,11 @@ extern "C" int geo_block_attn_fwd(int dtype, int head_dim, const void* q,
     s[i] = Strides{int64_t(strides[3 * i]), int64_t(strides[3 * i + 1]),
                    int64_t(strides[3 * i + 2])};
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, m, l, o, B, H, Tq, Tk, q_off, k_off,
-                             causal, scale, cs);
+    return launch_f32<64>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                          causal, scale, cs);
   if (dtype == 0 && head_dim == 128)
-    return launch<float, 128>(q, k, v, m, l, o, B, H, Tq, Tk, q_off, k_off,
-                              causal, scale, cs);
+    return launch_f32<128>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
+                           causal, scale, cs);
   if (dtype == 1 && head_dim == 64)
     return launch_bf16<64>(q, k, v, m, l, o, B, H, Tq, Tk, s, q_off, k_off,
                            causal, scale, cs);

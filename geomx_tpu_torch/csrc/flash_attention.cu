@@ -63,10 +63,27 @@
 //   * masked scores are -inf before the max; key 0 is visible to every
 //     row and lies in the first tile, so the running max is finite from
 //     the first tile on and no exp(-inf - (-inf)) is formed.
-// f32: plain FMAs from shared memory (no tensor cores: their f32 path
-// is TF32, which the port's f32 convention excludes): one block of 256
-// threads per 64-row tile, 4 lanes a row, tiles converted to f32 in
-// shared memory, register-blocked products.
+// f32 forward (fwd_f32_tc_kernel): the tensor cores too, with every
+// product to f32 accuracy, the port's f32 convention: three TF32 wgmma
+// products of split operands (3xTF32, hopper_tiles.cuh; a single TF32
+// product, ~2^-10, is not allowed).  Its bound at the MFU shape is then
+// 3 x 68.7 GFLOP at 495 TF32 TFLOP/s, 0.417 ms (on FMAs at 67 f32
+// TFLOP/s it was 1.026 ms, too near a library call's time in f32 for
+// any FMA kernel to beat it clearly).  The block is
+// hopper_tiles.cuh's Tf32Pipe: one warp issues the TMA copies (f32,
+// 32-column boxes) into a 2-stage ring; three warps split Q once and
+// each K tile into hi and lo and transpose V into Vt (TF32 takes K-major
+// operands only) into a second 2-stage ring, a step ahead of the
+// products; one consumer warpgroup (64 query rows: the shared-memory
+// budget leaves no room for a second at D = 128) forms S in three
+// products, keeps the bf16 forward's online softmax (-inf masking, the
+// longest rows first, tiles above the diagonal skipped) and feeds p from
+// its registers, split, into three P V products, each step's into a
+// fresh accumulator added to O in f32.  Key steps of 32 (the budget
+// again); the backward stays on the FMA kernels below.
+// f32 backward: plain FMAs from shared memory: one block of 256 threads
+// per 64-row tile, 4 lanes a row, tiles in shared memory,
+// register-blocked products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,11 +117,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);   // round to nearest even, as torch casts
-}
-
-// x rounded through the input type (the identity for f32)
-template <typename E> __device__ __forceinline__ float round_to(float x) {
-  return to_f<E>(from_f<E>(x));
 }
 
 struct Strides {
@@ -199,76 +211,6 @@ __host__ __device__ constexpr size_t tile_floats(int D) {
 }
 __host__ __device__ constexpr size_t score_floats() {
   return size_t(BR) * SP;
-}
-
-// ---- f32 forward ---------------------------------------------------------------
-
-template <typename E, int D>
-__global__ void __launch_bounds__(NT)
-fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
-           const E* __restrict__ v, E* __restrict__ o,
-           float* __restrict__ lse, int H, int n, Strides s, float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + tile_floats(D);
-  float* Vs = Ks + tile_floats(D);
-  float* Ps = Vs + tile_floats(D);
-
-  const int nt = (n + BR - 1) / BR;
-  const int qt = nt - 1 - blockIdx.x;   // the longest rows start first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t base = b * s.b + h * s.h;
-  const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const int q0 = qt * BR, qi = q0 + r;
-
-  load_tile<E, D>(Qs, q, base, q0, n, s.t);
-  float m = -INFINITY, l = 0.f;
-  float4 acc[D / 16];
-  zero<D>(acc);
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();   // the last tile's readers are done
-    load_tile<E, D>(Ks, k, base, k0, n, s.t);
-    load_tile<E, D>(Vs, v, base, k0, n, s.t);
-    __syncthreads();
-    float sc[NC];
-    dot_rows<D>(sc, Qs, Ks, r, qd);
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int kc = k0 + qd + 4 * j;
-      sc[j] = (kc < n && kc <= qi) ? sc[j] * scale : -INFINITY;
-      mt = fmaxf(mt, sc[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float mn = fmaxf(m, mt);
-    const float alpha = (m == -INFINITY) ? 0.f : expf(m - mn);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float p = (sc[j] == -INFINITY) ? 0.f : expf(sc[j] - mn);
-      ls += p;
-      Ps[r * SP + qd + 4 * j] = round_to<E>(p);
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l = l * alpha + ls;
-    m = mn;
-#pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) {
-      acc[jj].x *= alpha;
-      acc[jj].y *= alpha;
-      acc[jj].z *= alpha;
-      acc[jj].w *= alpha;
-    }
-    __syncwarp();   // row r of Ps was written by this warp's 4 lanes
-    acc_mx<D>(acc, Ps, Vs, r, qd);
-  }
-  if (qi < n) {
-    store_row<E, D>(o + base + qi * s.t, acc, 1.f / l, qd);
-    if (qd == 0) lse[int64_t(bh) * n + qi] = m + logf(l);
-  }
 }
 
 // ---- backward: delta = rowsum(dO * O) --------------------------------------
@@ -406,30 +348,11 @@ dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   if (qi < n) store_row<E, D>(dq + base + qi * s.t, dq_acc, scale, qd);
 }
 
-constexpr size_t fwd_smem(int D) {
-  return (3 * tile_floats(D) + score_floats()) * sizeof(float);
-}
 constexpr size_t dkdv_smem(int D) {
   return (4 * tile_floats(D) + 2 * score_floats() + 2 * BR) * sizeof(float);
 }
 constexpr size_t dq_smem(int D) {
   return (4 * tile_floats(D) + score_floats() + 2 * BR) * sizeof(float);
-}
-
-template <typename E, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int n, Strides s,
-                       float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + BR - 1) / BR, B * H);
-  fwd_kernel<E, D><<<grid, NT, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), lse, H, n, s, scale);
-  return cudaGetLastError();
 }
 
 template <typename E, int D>
@@ -668,6 +591,123 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (qi < n) {
       store_frag_row<D>(o + b * s.b + h * s.h + int64_t(qi) * s.t, oacc, i,
                         qd, 1.f / l[i]);
+      if (qd == 0) lse[int64_t(bh) * n + qi] = m2[i] * LN2 + logf(l[i]);
+    }
+  }
+}
+
+// ---- f32 forward: 3xTF32 on the tensor cores ------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(tc_threads(1), 1)
+fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  float* __restrict__ o, float* __restrict__ lse, int H,
+                  int n, Strides s, float scale) {
+  using L = hopper::Tf32Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN, ST = L::ST;
+  extern __shared__ uint8_t smem_raw[];
+  const hopper::Tf32Pipe<D> pp(smem_raw);
+
+  const int nt = (n + BM - 1) / BM;
+  const int qt = nt - 1 - blockIdx.x;          // the longest rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = qt * BM;
+  const int n_kt = min(q0 + BM - 1, n - 1) / BN + 1;   // tiles 0..diagonal
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) pp.init();
+  __syncthreads();
+  if (warp == 4) {                             // the copies
+    if (lane == 0) pp.produce(&tq, &tk, &tv, q0, h, b, n_kt, true);
+    return;
+  }
+  if (warp > 4) {                              // the splits
+    pp.convert(n_kt, true, threadIdx.x - 5 * 32);
+    return;
+  }
+
+  const int qd = lane % 4;
+  const int r0 = 16 * warp + lane / 4;         // tile row, i = 0
+  const float sl2 = scale * LOG2E;             // exp(x) = exp2(x log2 e)
+  float sacc[BN / 2], oacc[D / 2];
+  zero_regs(oacc);
+  float m2[2] = {-INFINITY, -INFINITY};        // running max, log2 units
+  float l[2] = {0.f, 0.f};                     // this thread's partial sums
+  uint32_t qa[D / 8][4], phi[BN / 8][4], plo[BN / 8][4];
+
+  mbar_wait(pp.q_ready, 0);
+  hopper::load_q_frags<D>(qa, pp.q, BM);
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it % ST, k0 = it * BN;
+    mbar_wait(&pp.cv_full[st], (it / ST) & 1);
+    hopper::qk_tf32x3<D, BN>(sacc, qa, pp.q_lo, BM, pp.stage(pp.k, it),
+                             pp.stage(pp.k_lo, it));
+    if (lane == 0) mbar_arrive(&pp.empty[st]);   // K is read
+
+    // mask keys past the diagonal or past T (warp-uniform test)
+    if (k0 + BN - 1 > q0 + 16 * warp || k0 + BN > n) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kc = k0 + 8 * j + 2 * qd + c, qi = q0 + r0 + 8 * i;
+            if (kc > qi || kc >= n) sacc[4 * j + 2 * i + c] = -INFINITY;
+          }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mt = fmaxf(mt, fmaxf(sacc[4 * j + 2 * i], sacc[4 * j + 2 * i + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float mn = fmaxf(m2[i], mt * sl2);   // finite from tile 0 on
+      alpha[i] = exp2f(m2[i] - mn);              // 0 on the first tile
+      m2[i] = mn;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = sacc[4 * j + 2 * i + c];
+          x = exp2f(fmaf(x, sl2, -m2[i]));       // masked: exp2(-inf) = 0
+          l[i] += x;
+        }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        oacc[4 * j + 2 * i] *= alpha[i];
+        oacc[4 * j + 2 * i + 1] *= alpha[i];
+      }
+    hopper::split_frags<BN>(phi, plo, sacc);
+    hopper::pv_tf32x3<D, BN>(oacc, phi, plo, pp.stage(pp.vt, it),
+                             pp.stage(pp.vt_lo, it));
+    if (lane == 0) mbar_arrive(&pp.cv_empty[st]);   // K_lo, Vt are read
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qi = q0 + r0 + 8 * i;
+    if (qi < n) {
+      float* row = o + b * s.b + h * s.h + int64_t(qi) * s.t + 2 * qd;
+      const float inv = 1.f / l[i];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j) =
+            make_float2(oacc[4 * j + 2 * i] * inv,
+                        oacc[4 * j + 2 * i + 1] * inv);
       if (qd == 0) lse[int64_t(bh) * n + qi] = m2[i] * LN2 + logf(l[i]);
     }
   }
@@ -1012,8 +1052,26 @@ cudaError_t set_smem(K kernel, int bytes) {
 }
 
 bool bthd_map(CUtensorMap* map, const void* p, int B, int H, int n, int D,
-              Strides s, int rows) {
-  return hopper::make_bthd_map(map, p, B, n, H, D, s.b, s.t, s.h, rows);
+              Strides s, int rows, int es = 2) {
+  return hopper::make_bthd_map(map, p, B, n, H, D, s.b, s.t, s.h, rows, es);
+}
+
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int H, int n,
+                           Strides s, float scale, cudaStream_t stream) {
+  using L = hopper::Tf32Tiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (!bthd_map(&tq, q, B, H, n, D, s, L::BM, 4) ||
+      !bthd_map(&tk, k, B, H, n, D, s, L::BN, 4) ||
+      !bthd_map(&tv, v, B, H, n, D, s, L::BN, 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fwd_f32_tc_kernel<D>, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + L::BM - 1) / L::BM, B * H);
+  fwd_f32_tc_kernel<D><<<grid, tc_threads(1), L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), lse, H, n, s, scale);
+  return cudaGetLastError();
 }
 
 template <int D, int NWG>
@@ -1115,9 +1173,9 @@ extern "C" int geo_flash_fwd(int dtype, int head_dim, const void* q,
   const Strides s{int64_t(sb), int64_t(st), int64_t(sh)};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch_fwd<float, 64>(q, k, v, o, lse, B, H, n, s, scale, cs);
+    return launch_fwd_f32<64>(q, k, v, o, lse, B, H, n, s, scale, cs);
   if (dtype == 0 && head_dim == 128)
-    return launch_fwd<float, 128>(q, k, v, o, lse, B, H, n, s, scale, cs);
+    return launch_fwd_f32<128>(q, k, v, o, lse, B, H, n, s, scale, cs);
   if (dtype == 1 && head_dim == 64)
     return launch_fwd_bf16<64>(q, k, v, o, lse, B, H, n, s, scale, cs);
   if (dtype == 1 && head_dim == 128)

@@ -68,12 +68,9 @@ def block_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """``(m, l, o)``: the CUDA kernel for CUDA tensors, else the plain
-    version.  bf16 views (the ring's shards) go to the kernel as they
-    are, which reads them through their strides; f32 is made
-    contiguous."""
+    version.  Views (the ring's shards) go to the kernel as they are,
+    which reads them through their strides."""
     if q.is_cuda:
-        if q.dtype != torch.bfloat16:
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         return kernels.block_attn_fwd(q, k, v, offs, causal)
     return block_attention_ref(q, k, v, offs, causal)
 

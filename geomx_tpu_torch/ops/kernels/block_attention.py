@@ -11,11 +11,12 @@ import it.
 :func:`block_attn_fwd` checks device, dtype, shape and layout,
 allocates ``m``, ``l`` and ``o`` with ``torch.empty``, launches on the
 current stream, raises if the launch reports a CUDA error, and counts
-the launch in :data:`LAUNCHES`.  bf16 tensors are read through TMA maps
-built from their strides, so a strided view (a ring shard
-``x[:, r*t:(r+1)*t]``) is taken as it is: its last dimension must be
-contiguous, its other strides multiples of 16 bytes and its first
-element 16-byte aligned.  f32 tensors must be contiguous.
+the launch in :data:`LAUNCHES` (``block_attn_fwd`` for the bf16 kernel,
+``block_attn_fwd_f32`` for the f32 one).  Both dtypes are read through
+TMA maps built from the tensors' strides, so a strided view (a ring
+shard ``x[:, r*t:(r+1)*t]``) is taken as it is: its last dimension must
+be contiguous, its other strides multiples of 16 bytes and its first
+element 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from geomx_tpu_torch.ops.kernels.flash_attention import (
     DTYPES, HEAD_DIMS, KERNEL_CACHE, PKG)
 from geomx_tpu_torch.utils.build import NvccLibrary
 
-LAUNCHES: Dict[str, int] = {"block_attn_fwd": 0}
+LAUNCHES: Dict[str, int] = {"block_attn_fwd": 0, "block_attn_fwd_f32": 0}
 _mu = threading.Lock()
 
 
@@ -65,15 +66,11 @@ def _check(name: str, t: torch.Tensor, q: torch.Tensor, T: int) -> None:
                          f"{(B, T, H, D)}")
     if t.dtype != q.dtype:
         raise TypeError(f"{name} is {t.dtype}, expected {q.dtype}")
-    if t.dtype == torch.bfloat16:
-        _check_tma_layout(name, t)
-    elif not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous [B, T, H, D] "
-                         f"(float32)")
+    _check_tma_layout(name, t)
 
 
 def _check_tma_layout(name: str, t: torch.Tensor) -> None:
-    """What a TMA map of a bf16 [B, T, H, D] tensor needs."""
+    """What a TMA map of a [B, T, H, D] tensor needs."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the last dimension must be contiguous "
                          f"(strides {t.stride()})")
@@ -134,5 +131,6 @@ def block_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if rc != 0:
             raise RuntimeError(f"block attention launch failed: CUDA error "
                                f"{rc}")
-        LAUNCHES["block_attn_fwd"] += 1
+        LAUNCHES["block_attn_fwd" if q.dtype == torch.bfloat16
+                 else "block_attn_fwd_f32"] += 1
     return m, l, o

@@ -12,16 +12,18 @@ launches build once.  ``nvcc`` is found through
 first launch raises.  Nothing is built or loaded when this module is
 imported, so the CPU tests can import it.
 
-Two launchers, each counting its launches in :data:`LAUNCHES`:
+Two launchers, each counting its launches in :data:`LAUNCHES` (the f32
+kernels under the name with ``_f32``):
 
 - :func:`flash_fwd` runs the forward kernel: ``(o, lse)``;
 - :func:`flash_bwd` runs the three backward kernels (delta, dK/dV, dQ)
   in one call: ``(dq, dk, dv)``.
 
-Each wrapper checks device, dtype, shape, contiguity and (bf16, whose
-kernels read through TMA) 16-byte alignment, allocates every
-output with ``torch.empty``, launches on the current stream and raises
-if the launch reports a CUDA error.
+Each wrapper checks device, dtype, shape, contiguity and (where the
+kernels read through TMA: the forward in both dtypes, the bf16
+backward) 16-byte alignment, allocates every output with
+``torch.empty``, launches on the current stream and raises if the
+launch reports a CUDA error.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ KERNEL_CACHE = PKG / ".kernel_cache"
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0,
+                            "flash_bwd": 0, "flash_bwd_f32": 0}
 _mu = threading.Lock()
 
 
@@ -107,11 +110,16 @@ def _check_q(q: torch.Tensor) -> Tuple[int, int, int, int]:
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
-    """bf16 runs on TMA, whose tensor maps need 16-byte aligned bases."""
+    """TMA's tensor maps need 16-byte aligned bases."""
     for t in ts:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError("bf16 flash attention needs 16-byte aligned "
-                             f"tensors (got address {t.data_ptr():#x})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{t.dtype} flash attention reads through TMA "
+                             f"and needs 16-byte aligned tensors (got "
+                             f"address {t.data_ptr():#x})")
+
+
+def _name(what: str, q: torch.Tensor) -> str:
+    return what if q.dtype == torch.bfloat16 else what + "_f32"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -143,7 +151,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                lse.data_ptr(), B, H, T, sb, st, sh,
                                float(sm_scale), _stream(q))
         _raise_on(rc, "flash forward")
-        LAUNCHES["flash_fwd"] += 1
+        LAUNCHES[_name("flash_fwd", q)] += 1
     return o, lse
 
 
@@ -158,7 +166,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(name, t, q)
     want = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _check("lse", lse, want)
-    _check_aligned(q, k, v, o, do)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, o, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
@@ -173,5 +182,5 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dk.data_ptr(), dv.data_ptr(), B, H, T,
                                sb, st, sh, float(sm_scale), _stream(q))
         _raise_on(rc, "flash backward")
-        LAUNCHES["flash_bwd"] += 1
+        LAUNCHES[_name("flash_bwd", q)] += 1
     return dq, dk, dv

@@ -21,7 +21,9 @@ bf16 after an ``exp`` that may differ by an f32 ulp); gradients
 rtol/atol 1e-3, as the JAX package's own test holds its VJP.  On the
 card (``cuda`` marker): kernel against plain version, f32 1e-4 and
 bf16 2e-2, each times max(1, the largest unmasked reference entry), and
-a relative L2 of 1e-4 / 1e-2; fully masked rows exact.
+a relative L2 of 1e-4 / 1e-2; fully masked rows exact.  The f32 kernel's
+3xTF32 arithmetic is held against JAX on the CPU by
+``tests/test_torch_attention_f32.py``.
 """
 
 import jax
@@ -233,7 +235,7 @@ def test_kernel_wrapper_checks_its_arguments():
         K.block_attn_fwd(q, q[:, :0], q[:, :0], (0, 0))
     with pytest.raises(ValueError, match=r"\[B, T, H, D\]"):
         K.block_attn_fwd(torch.zeros(4, 64), q, q, (0, 0))
-    # f32 runs on contiguous tensors only
+    # both dtypes are read through TMA: a strided last dimension is not
     with pytest.raises(ValueError, match="contiguous"):
         f = torch.zeros(1, 4, 1, 128)[..., ::2]
         K.block_attn_fwd(f, f, f, (0, 0))
@@ -255,6 +257,34 @@ def test_kernel_wrapper_checks_its_arguments():
             with pytest.raises(ValueError, match=match):
                 K.block_attn_fwd(*args, (0, 0))
     assert K.launches() == before   # nothing launched, nothing counted
+
+
+def test_f32_wrapper_reads_shard_views_and_refuses_tma_breaking_layouts(
+        monkeypatch):
+    """f32 is read through TMA maps of the tensors' strides, as bf16: a
+    ring shard's view passes the layout checks (and fails only for being
+    on the CPU); a strided last dimension, a stride off 16 bytes or a
+    misaligned start does not.  Each is refused before the library is
+    loaded."""
+    def no_load():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(K.LIB, "load", no_load)
+    before = K.launches()
+    shard = torch.zeros(2, 8, 1, 64)[:, 4:]
+    assert not shard.is_contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        K.block_attn_fwd(shard, shard, shard, (4, 0))
+    for bad, match in (
+            (torch.zeros(2, 4, 1, 128)[..., ::2], "last dimension"),
+            (torch.zeros(2, 4, 1, 66)[..., :64], "16 bytes"),
+            (torch.zeros(2 * 4 * 64 + 1)[1:].view(2, 4, 1, 64),
+             "16-byte boundary")):
+        for args in ((bad, shard, shard), (shard, bad, shard),
+                     (shard, shard, bad)):
+            with pytest.raises(ValueError, match=match):
+                K.block_attn_fwd(*args, (0, 0))
+    assert K.launches() == before
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -295,10 +325,11 @@ def test_kernel_matches_plain_version_on_the_card(card, shape, dtype):
     k, v = (_as(a, dtype).to(card) for a in _np((b, tk, h, d), seed=4, n=2))
     tol = 1e-4 if dtype == "float32" else 2e-2
     geos = [*_geometries(tq, tk).values(), (0, 0, False)]
+    count = "block_attn_fwd" if dtype == "bfloat16" else "block_attn_fwd_f32"
     for qo, ko, causal in geos:
-        before = K.launches()["block_attn_fwd"]
+        before = K.launches()[count]
         got = K.block_attn_fwd(q, k, v, (qo, ko), causal)
-        assert K.launches()["block_attn_fwd"] == before + 1
+        assert K.launches()[count] == before + 1
         ref = BA.block_attention_ref(q, k, v, (qo, ko), causal)
         torch.cuda.synchronize()
         dead = ref[0] <= -1e29        # fully masked rows
@@ -314,11 +345,12 @@ def test_kernel_matches_plain_version_on_the_card(card, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_ring_shard_views_in_place(card):
-    """bf16 q, k, v as the ring passes them, views of the sequence split
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_reads_ring_shard_views_in_place(card, dtype):
+    """q, k, v as the ring passes them, views of the sequence split
     x[:, r*t:(r+1)*t]: the same bits as their contiguous copies."""
     x = torch.from_numpy(_np((2, 4 * 64, 3, 128), seed=9, n=1)[0]).to(
-        card, torch.bfloat16)
+        card, getattr(torch, dtype))
     q, k, v = x[:, 128:192], x[:, 64:128], x[:, 192:256]
     assert not q.is_contiguous()
     got = K.block_attn_fwd(q, k, v, (128, 64), True)
