@@ -30,11 +30,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    three, and on the sweep for quantize and dequantize;
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
-   tensor cores, the f32 forward on them too as three TF32 products of
-   split operands (3xTF32), the f32 backward on FMAs) against their
-   plain versions in bf16 and
-   f32 at (B,T,H,Dh) = (8,128,6,64) (the flagship LM), (4,2048,16,128)
-   (the MFU config), (2,1000,3,64) (a ragged tail), (1,2047,2,128) (T
+   tensor cores, f32 on them too as three TF32 products of split
+   operands (3xTF32)) against their plain versions in bf16 and f32 at
+   (B,T,H,Dh) = (8,128,6,64) (the flagship LM), (4,2048,16,128) (the
+   MFU config), (2,1000,3,64) (a ragged tail), (1,2047,2,128) (T
    not a multiple of the 128-row tile), (1,1500,24,128) (the same on
    the two-warpgroup tiles, which the bf16 kernels take when 128-row
    tiles fill the SMs), (2,100,3,64) (T below one tile) and (1,1,1,64);
@@ -45,11 +44,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel does) than the unrounded one; the ptxas log must show no
    spill in a tensor-core kernel; CUDA-event times of kernel, plain version
    and ``scaled_dot_product_attention`` (a yardstick only, never on the
-   port's path), each beside its bound (the f32 forward's: three TF32
-   products at 495 TFLOP/s), and at the LM's and the MFU shape in both
-   dtypes each kernel's device time a call (``torch.profiler`` over 10
-   calls); the f32 forward at the MFU shape must take less event time
-   than its plain version and than the FMA kernel it replaced, as last
+   port's path), each beside its bound (in f32: three TF32 products at
+   495 TFLOP/s), and at the LM's and the MFU shape in both dtypes each
+   kernel's device time a call (``torch.profiler`` over 10 calls: the
+   backward's delta, dK/dV and dQ kernels apart); the f32 forward and
+   the f32 backward at the MFU shape must each take less event time than
+   its plain version and than the FMA kernels they replaced, as last
    measured (``FMA_LAST_MS``);
 3b. block attention — the CUDA kernel of a ring hop's partial block
    (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 and f32, 3xTF32,
@@ -94,8 +94,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    block kernels must show;
 4c. the f32 step — phase 4's widths and tokens in ``compute_dtype=
    float32`` (fresh weights from the same seed): one forward and
-   backward with ``attn_impl="flash"`` (the f32 flash forward on the
-   tensor cores, the f32 backward on FMAs) and one with ``"dense"``
+   backward with ``attn_impl="flash"`` (the f32 flash forward and
+   backward on the tensor cores) and one with ``"dense"``
    (TF32 off for every torch product), then the same weights through
    ``make_apply`` on the ``sp = 4`` mesh with ring attention and
    ``"flash"`` (the f32 block kernel on every hop); loss within 1e-4
@@ -144,7 +144,7 @@ TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # the f32 kernels whose products are three TF32 products (3xTF32): their
 # bound counts 3 x the function's operations at the TF32 peak
-TF32X3_KERNELS = ("flash_fwd", "block_attn_fwd")
+TF32X3_KERNELS = ("flash_fwd", "flash_bwd", "block_attn_fwd")
 SIZES = (1, 4097, 401_408, 50_000_000)
 MAIN_N = 401_408              # largest leaf of the CNN: the main path's size
 # the CUDA codec kernels are also checked at the LM's key sizes (384,
@@ -208,9 +208,11 @@ BLOCK_MAIN_F32 = ((4, 512, 512, 16, 128), "float32", "below")
 BLOCK_MAIN_MAX_MS = 0.30
 # event times (ms) of the f32 FMA kernels that the 3xTF32 tensor-core
 # kernels replaced, as last measured (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md, kernel table): the flash forward at the MFU shape and the
-# block "below" at the MFU hop; each new kernel must beat them there
-FMA_LAST_MS = {"flash_fwd": 7.0180, "block_attn_fwd": 1.2300}
+# PERF.md, kernel table): the flash forward and backward at the MFU shape
+# and the block "below" at the MFU hop; each new kernel must beat them
+# there
+FMA_LAST_MS = {"flash_fwd": 7.0180, "flash_bwd": 22.0077,
+               "block_attn_fwd": 1.2300}
 # phase 4c, f32 everywhere: flash (and the sp ring) against dense.  They
 # differ by summation order, the forward's 3xTF32 products and the tensor
 # cores' f32 accumulation, which the backward's delta = rowsum(dO * O)
@@ -588,15 +590,13 @@ def flash_costs(shape, dtype: str) -> dict:
 
 def _bound(flops: float, nbytes: float, dtype: str, name: str):
     """(least time in ms, what bounds it) of kernel ``name``'s function:
-    bf16 products at the bf16 tensor-core peak; the f32 forward kernels'
-    as three TF32 products each (3xTF32) at the TF32 peak; the f32 flash
-    backward's on FMAs at the f32 peak."""
+    bf16 products at the bf16 tensor-core peak; f32 products as three
+    TF32 products each (3xTF32) at the TF32 peak."""
+    assert dtype == "bfloat16" or name in TF32X3_KERNELS, name
     if dtype == "bfloat16":
         ops, peak = flops, BF16_OPS_PER_S
-    elif name in TF32X3_KERNELS:
-        ops, peak = 3 * flops, TF32_OPS_PER_S
     else:
-        ops, peak = flops, F32_OPS_PER_S
+        ops, peak = 3 * flops, TF32_OPS_PER_S
     b_ops = ops / peak * 1e3
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(b_ops, b_bytes), ("operations" if b_ops >= b_bytes
@@ -750,9 +750,10 @@ def check_flash(dev) -> dict:
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by})")
             if (shape, dt) == (FLASH_MFU[0], "float32"):
-                f = rec["flash_fwd"]
-                _below_gates(f"flash_fwd {shape} f32", f["ms"],
-                             f["plain_ms"], FMA_LAST_MS["flash_fwd"], "FMA")
+                for name in ("flash_fwd", "flash_bwd"):
+                    f = rec[name]
+                    _below_gates(f"{name} {shape} f32", f["ms"],
+                                 f["plain_ms"], FMA_LAST_MS[name], "FMA")
             out["by_shape"][f"{shape} {dt}"] = rec
             del q, k, v, do, o, lse, ro, rlse, grads, refs, sq, sk, sv, so
             torch.cuda.empty_cache()

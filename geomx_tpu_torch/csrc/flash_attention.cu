@@ -80,10 +80,13 @@
 // longest rows first, tiles above the diagonal skipped) and feeds p from
 // its registers, split, into three P V products, each step's into a
 // fresh accumulator added to O in f32.  Key steps of 32 (the budget
-// again); the backward stays on the FMA kernels below.
-// f32 backward: plain FMAs from shared memory: one block of 256 threads
-// per 64-row tile, 4 lanes a row, tiles in shared memory,
-// register-blocked products.
+// again).
+// f32 backward (delta_kernel, dkdv_f32_tc_kernel, dq_f32_tc_kernel): the
+// same convention and the same roles (BwdF32Pipe, below), with dS scaled
+// before its products as in bf16.  Seven products of three TF32 wgmma
+// each (no atomics: S and dP are formed in both kernels): 3 x 171.9
+// GFLOP at the MFU shape is 1.042 ms at 495 TF32 TFLOP/s, 7/5 of it
+// 1.46 ms.  Shared memory bounds the steps: 16 rows at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,12 +97,7 @@
 
 namespace {
 
-
-constexpr int BR = 64;       // rows of a tile (queries or keys)
-constexpr int NT = 256;      // threads a block: 4 lanes per tile row
-constexpr int PAD = 4;       // floats of padding per [BR][D] tile row
-constexpr int SP = BR + 1;   // row stride of a [BR][BR] score tile
-constexpr int NC = BR / 4;   // score columns a lane holds
+constexpr int NT = 256;      // threads a block of delta_kernel
 
 template <typename E> __device__ __forceinline__ float to_f(E x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -110,108 +108,9 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
   return __bfloat162float(x);
 }
 
-template <typename E> __device__ __forceinline__ E from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch casts
-}
-
 struct Strides {
   int64_t b, t, h;   // elements between rows of b, t and h
 };
-
-// Rows row0 .. row0+BR-1 of the (b, h) slice of a [B, T, H, D] tensor
-// into a [BR][D + PAD] f32 tile; rows past n are zeros.
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(float* dst, const E* src,
-                                          int64_t base, int row0, int n,
-                                          int64_t st) {
-  for (int i = threadIdx.x; i < BR * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int t = row0 + r;
-    dst[r * (D + PAD) + d] = t < n ? to_f<E>(src[base + t * st + d]) : 0.f;
-  }
-}
-
-// The 4 lanes of a row own the row's stats: lse and delta of rows
-// row0 .. row0+BR-1 of [B, H, T] slice bh into dst[BR] (0 past n).
-__device__ __forceinline__ void load_rowvec(float* dst, const float* src,
-                                            int64_t bh, int row0, int n) {
-  for (int i = threadIdx.x; i < BR; i += NT) {
-    const int t = row0 + i;
-    dst[i] = t < n ? src[bh * n + t] : 0.f;
-  }
-}
-
-// acc[j] = A[r] . Bm[qd + 4j] over D, for the lane's NC columns.
-template <int D>
-__device__ __forceinline__ void dot_rows(float (&acc)[NC], const float* A,
-                                         const float* Bm, int r, int qd) {
-#pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.f;
-  const float* a = A + r * (D + PAD);
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(a + d);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(
-          Bm + (qd + 4 * j) * (D + PAD) + d);
-      acc[j] += av.x * bv.x + av.y * bv.y + av.z * bv.z + av.w * bv.w;
-    }
-  }
-}
-
-// acc[r][d] += sum_c M[r][c] * X[c][d]: the lane holds columns
-// d = 16*jj + 4*qd .. +3 of row r.
-template <int D>
-__device__ __forceinline__ void acc_mx(float4 (&acc)[D / 16], const float* M,
-                                       const float* X, int r, int qd) {
-  const float* m = M + r * SP;
-#pragma unroll 4
-  for (int c = 0; c < BR; ++c) {
-    const float mc = m[c];
-    const float* x = X + c * (D + PAD) + 4 * qd;
-#pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) {
-      const float4 xv = *reinterpret_cast<const float4*>(x + 16 * jj);
-      acc[jj].x += mc * xv.x;
-      acc[jj].y += mc * xv.y;
-      acc[jj].z += mc * xv.z;
-      acc[jj].w += mc * xv.w;
-    }
-  }
-}
-
-template <typename E, int D>
-__device__ __forceinline__ void store_row(E* dst, const float4 (&acc)[D / 16],
-                                          float mul, int qd) {
-#pragma unroll
-  for (int jj = 0; jj < D / 16; ++jj) {
-    E* p = dst + 16 * jj + 4 * qd;
-    p[0] = from_f<E>(acc[jj].x * mul);
-    p[1] = from_f<E>(acc[jj].y * mul);
-    p[2] = from_f<E>(acc[jj].z * mul);
-    p[3] = from_f<E>(acc[jj].w * mul);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float4 (&acc)[D / 16]) {
-#pragma unroll
-  for (int jj = 0; jj < D / 16; ++jj)
-    acc[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__host__ __device__ constexpr size_t tile_floats(int D) {
-  return size_t(BR) * (D + PAD);
-}
-__host__ __device__ constexpr size_t score_floats() {
-  return size_t(BR) * SP;
-}
 
 // ---- backward: delta = rowsum(dO * O) --------------------------------------
 
@@ -235,161 +134,16 @@ delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
   if (lane == 0) delta[(int64_t(b) * H + h) * n + t] = acc;
 }
 
-// ---- backward: dK, dV (one block per key tile) -----------------------------
-
 template <typename E, int D>
-__global__ void __launch_bounds__(NT)
-dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-            const E* __restrict__ v, const E* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            E* __restrict__ dk, E* __restrict__ dv, int H, int n, Strides s,
-            float scale) {
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + tile_floats(D);
-  float* Qs = Vs + tile_floats(D);
-  float* dOs = Qs + tile_floats(D);
-  float* Pt = dOs + tile_floats(D);     // P^T: [key][query]
-  float* dSt = Pt + score_floats();     // dS^T
-  float* lse_s = dSt + score_floats();
-  float* del_s = lse_s + BR;
-
-  const int nt = (n + BR - 1) / BR;
-  const int kt = blockIdx.x;            // low key tiles carry most work
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t base = b * s.b + h * s.h;
-  const int c = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const int k0 = kt * BR, kc = k0 + c;
-
-  load_tile<E, D>(Ks, k, base, k0, n, s.t);
-  load_tile<E, D>(Vs, v, base, k0, n, s.t);
-  float4 dk_acc[D / 16], dv_acc[D / 16];
-  zero<D>(dk_acc);
-  zero<D>(dv_acc);
-  for (int qt = kt; qt < nt; ++qt) {
-    const int q0 = qt * BR;
-    __syncthreads();
-    load_tile<E, D>(Qs, q, base, q0, n, s.t);
-    load_tile<E, D>(dOs, dout, base, q0, n, s.t);
-    load_rowvec(lse_s, lse, bh, q0, n);
-    load_rowvec(del_s, delta, bh, q0, n);
-    __syncthreads();
-    float st[NC], dpt[NC];
-    dot_rows<D>(st, Ks, Qs, c, qd);     // s[i][c] for i = qd + 4j
-    dot_rows<D>(dpt, Vs, dOs, c, qd);   // dP[i][c] = dO[i] . V[c]
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int i = qd + 4 * j, qi = q0 + i;
-      const float p = (qi < n && kc < n && kc <= qi)
-                          ? expf(st[j] * scale - lse_s[i]) : 0.f;
-      Pt[c * SP + i] = p;
-      dSt[c * SP + i] = p * (dpt[j] - del_s[i]);
-    }
-    __syncwarp();   // row c of Pt/dSt was written by this warp's 4 lanes
-    acc_mx<D>(dv_acc, Pt, dOs, c, qd);   // dV[c] += sum_i P[i][c] dO[i]
-    acc_mx<D>(dk_acc, dSt, Qs, c, qd);   // dK[c] += sum_i dS[i][c] Q[i]
-  }
-  if (kc < n) {
-    store_row<E, D>(dk + base + kc * s.t, dk_acc, scale, qd);
-    store_row<E, D>(dv + base + kc * s.t, dv_acc, 1.f, qd);
-  }
-}
-
-// ---- backward: dQ (one block per query tile) -------------------------------
-
-template <typename E, int D>
-__global__ void __launch_bounds__(NT)
-dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-          const E* __restrict__ v, const E* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          E* __restrict__ dq, int H, int n, Strides s, float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + tile_floats(D);
-  float* Ks = dOs + tile_floats(D);
-  float* Vs = Ks + tile_floats(D);
-  float* dSs = Vs + tile_floats(D);
-  float* lse_s = dSs + score_floats();
-  float* del_s = lse_s + BR;
-
-  const int nt = (n + BR - 1) / BR;
-  const int qt = nt - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t base = b * s.b + h * s.h;
-  const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const int q0 = qt * BR, qi = q0 + r;
-
-  load_tile<E, D>(Qs, q, base, q0, n, s.t);
-  load_tile<E, D>(dOs, dout, base, q0, n, s.t);
-  load_rowvec(lse_s, lse, bh, q0, n);
-  load_rowvec(del_s, delta, bh, q0, n);
-  float4 dq_acc[D / 16];
-  zero<D>(dq_acc);
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();
-    load_tile<E, D>(Ks, k, base, k0, n, s.t);
-    load_tile<E, D>(Vs, v, base, k0, n, s.t);
-    __syncthreads();
-    float sc[NC], dp[NC];
-    dot_rows<D>(sc, Qs, Ks, r, qd);
-    dot_rows<D>(dp, dOs, Vs, r, qd);
-    const float lr = lse_s[r], dr = del_s[r];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int kc = k0 + qd + 4 * j;
-      const float p = (qi < n && kc < n && kc <= qi)
-                          ? expf(sc[j] * scale - lr) : 0.f;
-      dSs[r * SP + qd + 4 * j] = p * (dp[j] - dr);
-    }
-    __syncwarp();
-    acc_mx<D>(dq_acc, dSs, Ks, r, qd);   // dQ[r] += sum_c dS[r][c] K[c]
-  }
-  if (qi < n) store_row<E, D>(dq + base + qi * s.t, dq_acc, scale, qd);
-}
-
-constexpr size_t dkdv_smem(int D) {
-  return (4 * tile_floats(D) + 2 * score_floats() + 2 * BR) * sizeof(float);
-}
-constexpr size_t dq_smem(int D) {
-  return (4 * tile_floats(D) + score_floats() + 2 * BR) * sizeof(float);
-}
-
-template <typename E, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int B,
-                       int H, int n, Strides s, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int B, int H, int n, Strides s,
+                         cudaStream_t stream) {
   const int64_t rows = int64_t(B) * n * H;
   const int warps_per_block = NT / 32;
   delta_kernel<E, D><<<unsigned((rows + warps_per_block - 1) /
                                 warps_per_block), NT, 0, stream>>>(
       static_cast<const E*>(o), static_cast<const E*>(dout), delta, B, H, n,
       s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 grid((n + BR - 1) / BR, B * H);
-  err = cudaFuncSetAttribute(dkdv_kernel<E, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(dkdv_smem(D)));
-  if (err != cudaSuccess) return err;
-  dkdv_kernel<E, D><<<grid, NT, dkdv_smem(D), stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
-      static_cast<E*>(dk), static_cast<E*>(dv), H, n, s, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = cudaFuncSetAttribute(dq_kernel<E, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(dq_smem(D)));
-  if (err != cudaSuccess) return err;
-  dq_kernel<E, D><<<grid, NT, dq_smem(D), stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
-      static_cast<E*>(dq), H, n, s, scale);
   return cudaGetLastError();
 }
 
@@ -710,6 +464,463 @@ fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         oacc[4 * j + 2 * i + 1] * inv);
       if (qd == 0) lse[int64_t(bh) * n + qi] = m2[i] * LN2 + logf(l[i]);
     }
+  }
+}
+
+// ---- f32 backward: 3xTF32 on the tensor cores ------------------------------
+//
+// Both kernels run one plan (BwdF32Pipe).  A block holds a resident
+// 64-row pair (X, Y) with its lo -- K and V for dK/dV, Q and dO for dQ --
+// and streams STEP-row pairs (A, B) -- Q and dO for dK/dV, K and V for
+// dQ.  Its first two products, S = X A^T and P = Y B^T (S^T and dP^T, or
+// S and dP), are K-major along D on both sides.  Each streamed tile lands
+// in the first STEP rows of 2*STEP-row boxes and its lo goes to the last
+// STEP, so one wgmma of N = 2*STEP forms hi hi' and hi lo' together
+// (X [A; A_lo]^T) and a second, of N = STEP, forms lo hi' (X_lo A^T): two
+// instructions a depth step for three products, each part summed apart
+// and added in f32.  At N = 16 a TF32 wgmma costs nearly as much as at
+// N = 32, so the number of wgmma issued, not the bytes of their
+// operands, bounds the S and dP products; pairing takes a third away.
+//
+// The products that reduce over the stream's rows need its transposes,
+// since TF32 takes K-major operands only: the converter warps write A^T
+// (and for dK/dV B^T) as hi and lo, keys in the order 0 2 4 6 1 3 5 7 of
+// each 8, so the first products' accumulators are the A fragments of
+// the next (split_frags):
+//   * dK/dV (one block per 64-key tile, queries from the diagonal down):
+//     dV += P^T dO against dO^T, dK += (dS scale)^T Q against Q^T;
+//   * dQ (one block per 64-query tile, the longest rows first, keys up
+//     to the diagonal): dQ += (dS scale) K against K^T, with Q's hi held
+//     in registers as the A operand of S (load_q_frags).
+// Each step's product goes into a fresh accumulator added to dK, dV or dQ
+// in f32 (pv_tf32x3), so the tensor cores' accumulation never sees a
+// running sum over the sequence.
+//
+// Roles: warps 0-3, one consumer warpgroup; warp 4 issues the TMA copies
+// (X and Y once, then a ring of ST stages of A and B); warps 5-7 split X
+// and Y once, then each landed stage's lo beside it and, after that, the
+// transposes (a ring of two stages, which at STEP = 16 share one tile:
+// positions 0-15 and 16-31 of its 128-byte rows).  Shared memory at
+// D = 128 (a row is 512 bytes): X, X_lo, Y, Y_lo 128 KB; a stage of A,
+// A_lo, B, B_lo 32 KB; the transposes 32 KB a tensor (hi and lo, both
+// stages).  dK/dV transposes A and B: 128 + 32 + 64 = 224 KB, so one
+// stage and STEP = 16; dQ transposes A only: two stages.  At D = 64
+// everything halves, and STEP = 32 with two stages.
+
+template <int D, int NTR>   // NTR: streamed tensors transposed (2 or 1)
+struct BwdF32Pipe {
+  static constexpr int R = 64;                  // resident rows
+  static constexpr int STEP = D == 128 ? 16 : 32;
+  static constexpr int ST = (D == 128 && NTR == 2) ? 1 : 2;
+  static constexpr int NCV = 96;                // converter threads
+  static constexpr int RES_BYTES = R * D * 4;
+  static constexpr int STEP_BYTES = STEP * D * 4;
+  static constexpr int PAIR_BYTES = 2 * STEP_BYTES;   // a tile and its lo
+  static constexpr int T_BYTES = 2 * STEP_BYTES;      // both stages
+  static constexpr int N_BARS = 2 + 3 * ST + 4;
+  static constexpr int SMEM = 1024 + 4 * RES_BYTES + 2 * ST * PAIR_BYTES +
+                              2 * NTR * T_BYTES + 8 * N_BARS;
+  static_assert(SMEM <= 232448, "f32 backward tiles exceed shared memory");
+
+  uint8_t *x, *x_lo, *y, *y_lo;       // resident
+  uint8_t *a, *b;                     // ST stages of [tile; lo] boxes
+  uint8_t *at, *at_lo, *bt, *bt_lo;   // transposes, two stages each
+  uint64_t *x_full, *x_ready;         // X, Y landed; split
+  uint64_t *full, *lo_full, *empty;   // A, B landed; lo written; read
+  uint64_t *t_full, *t_empty;         // transposes written; read
+
+  __device__ explicit BwdF32Pipe(uint8_t* raw) {
+    x = align1024(raw);
+    x_lo = x + RES_BYTES;
+    y = x_lo + RES_BYTES;
+    y_lo = y + RES_BYTES;
+    a = y_lo + RES_BYTES;
+    b = a + ST * PAIR_BYTES;
+    at = b + ST * PAIR_BYTES;
+    at_lo = at + T_BYTES;
+    bt = at_lo + T_BYTES;                       // unused when NTR == 1
+    bt_lo = bt + T_BYTES;
+    x_full = reinterpret_cast<uint64_t*>(at + 2 * NTR * T_BYTES);
+    x_ready = x_full + 1;
+    full = x_ready + 1;
+    lo_full = full + ST;
+    empty = lo_full + ST;
+    t_full = empty + ST;
+    t_empty = t_full + 2;
+  }
+
+  // by thread 0, before a __syncthreads
+  __device__ void init() const {
+    hopper::mbar_init(x_full, 1);
+    hopper::mbar_init(x_ready, NCV);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&lo_full[i], NCV);
+      hopper::mbar_init(&empty[i], 4 + NCV);   // consumer warps, converters
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&t_full[i], NCV);
+      hopper::mbar_init(&t_empty[i], 4);
+    }
+    hopper::mbar_init_fence();
+  }
+
+  __device__ static int ph(int it, int st) { return (it / st) & 1; }
+
+  __device__ uint8_t* stage(uint8_t* ring, int it) const {
+    return ring + (it % ST) * PAIR_BYTES;
+  }
+
+  // warp 4, lane 0: X, Y (rows r0 ..) once, then A, B of each step (rows
+  // s0 + it * STEP ..) into the first STEP rows of their boxes
+  __device__ void produce(const CUtensorMap* tx, const CUtensorMap* ty,
+                          const CUtensorMap* ta, const CUtensorMap* tb,
+                          int r0, int s0, int h, int bi,
+                          int n_it) const {
+    mbar_arrive_tx(x_full, 2 * RES_BYTES);
+    tma_load_tile<D, 4>(x, tx, x_full, R, r0, h, bi);
+    tma_load_tile<D, 4>(y, ty, x_full, R, r0, h, bi);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % ST;
+      mbar_wait(&empty[st], ph(it, ST) ^ 1);
+      mbar_arrive_tx(&full[st], 2 * STEP_BYTES);
+      const int row = s0 + it * STEP;
+      tma_load_tile<D, 4>(stage(a, it), ta, &full[st], STEP, row, h, bi,
+                          2 * STEP);
+      tma_load_tile<D, 4>(stage(b, it), tb, &full[st], STEP, row, h, bi,
+                          2 * STEP);
+    }
+  }
+
+  // the lo of stage it's A and B into the last STEP rows of each box, by
+  // thread t of NCV: four 16-byte chunks a round, loaded before any is
+  // stored
+  __device__ void split_pairs(int it, int t) const {
+    constexpr int HALF = STEP * 128;            // bytes of a box's rows
+    constexpr int CH = 2 * STEP_BYTES / 16;     // chunks of A and B
+    uint8_t* const ta = stage(a, it);
+    uint8_t* const tb = stage(b, it);
+    for (int c0 = t; c0 < CH; c0 += 4 * NCV) {
+      float4 v[4];
+      uint8_t* hi[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = 16 * (c0 + u * NCV);     // byte of A, then of B
+        const int j = i % STEP_BYTES;
+        hi[u] = (i < STEP_BYTES ? ta : tb) + (j / HALF) * 2 * HALF +
+                j % HALF;
+        if (c0 + u * NCV < CH) v[u] = *reinterpret_cast<const float4*>(hi[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c0 + u * NCV < CH) {
+          uint4 h, l;
+          hopper::split_tf32(v[u].x, h.x, l.x);
+          hopper::split_tf32(v[u].y, h.y, l.y);
+          hopper::split_tf32(v[u].z, h.z, l.z);
+          hopper::split_tf32(v[u].w, h.w, l.w);
+          *reinterpret_cast<uint4*>(hi[u] + HALF) = l;
+        }
+    }
+  }
+
+  // warps 5-7 (t = 0 .. NCV-1): X_lo, Y_lo once; then for each step the
+  // lo of A and B and the transposes; each made visible to wgmma before
+  // it is announced
+  __device__ void convert(int n_it, int t) const {
+    mbar_wait(x_full, 0);
+    hopper::split_tile(x, x_lo, RES_BYTES, t, NCV);
+    hopper::split_tile(y, y_lo, RES_BYTES, t, NCV);
+    hopper::fence_async_smem();
+    mbar_arrive(x_ready);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % ST, s = it & 1;
+      uint8_t* ar = stage(a, it);
+      uint8_t* br = stage(b, it);
+      mbar_wait(&full[st], ph(it, ST));
+      split_pairs(it, t);
+      hopper::fence_async_smem();
+      mbar_arrive(&lo_full[st]);
+      mbar_wait(&t_empty[s], ph(it, 2) ^ 1);
+      constexpr int UNITS = STEP / 4 * (D / 4);   // a tile's transpose
+      for (int u = t; u < NTR * UNITS; u += NCV) {
+        const bool second = u >= UNITS;          // B's (NTR == 2)
+        hopper::split_transpose_unit<D, STEP>(
+            second ? br : ar, second ? bt : at, second ? bt_lo : at_lo,
+            u - (second ? UNITS : 0), s * STEP, 2 * STEP);
+      }
+      hopper::fence_async_smem();
+      mbar_arrive(&t_full[s]);
+      mbar_arrive(&empty[st]);
+    }
+  }
+
+  // the consumer warpgroup: wait for step it's lo and form S = X A^T and
+  // P = Y B^T (3xTF32 each, see above); X's hi from registers (xa, as
+  // load_q_frags reads it) when XREG.  On return the stage is released.
+  template <bool XREG>
+  __device__ void products(int it, float (&s)[STEP / 2],
+                           float (&p)[STEP / 2],
+                           const uint32_t (*xa)[4] = nullptr) const {
+    const int st = it % ST;
+    const uint8_t* A = stage(a, it);
+    const uint8_t* B = stage(b, it);
+    float s2[STEP], p2[STEP];   // [hi hi' | hi lo'], N = 2 STEP
+    mbar_wait(&lo_full[st], ph(it, ST));
+    zero_regs(s2);
+    zero_regs(s);
+    zero_regs(p2);
+    zero_regs(p);
+    fence_regs(s2);
+    fence_regs(s);
+    fence_regs(p2);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      if constexpr (XREG)
+        hopper::wgmma_tf32_rs<2 * STEP>(s2, xa[kk],
+                                        smem_desc_k(A, 2 * STEP, 0, kk));
+      else
+        hopper::wgmma_tf32_ss<2 * STEP>(s2, smem_desc_k(x, R, 0, kk),
+                                        smem_desc_k(A, 2 * STEP, 0, kk), 1);
+      hopper::wgmma_tf32_ss<STEP>(s, smem_desc_k(x_lo, R, 0, kk),
+                                  smem_desc_k(A, 2 * STEP, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      hopper::wgmma_tf32_ss<2 * STEP>(p2, smem_desc_k(y, R, 0, kk),
+                                      smem_desc_k(B, 2 * STEP, 0, kk), 1);
+      hopper::wgmma_tf32_ss<STEP>(p, smem_desc_k(y_lo, R, 0, kk),
+                                  smem_desc_k(B, 2 * STEP, 0, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s2);
+    fence_regs(s);
+    fence_regs(p2);
+    fence_regs(p);
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[st]);
+    // columns c of s2 and p2 hold hi hi', columns STEP + c hi lo'
+#pragma unroll
+    for (int e = 0; e < STEP / 2; ++e) {
+      s[e] = (s2[e + STEP / 2] + s[e]) + s2[e];
+      p[e] = (p2[e + STEP / 2] + p[e]) + p2[e];
+    }
+  }
+
+  // acc += F T in three TF32 products over the step's rows, F the
+  // fragments of a first product (split_frags), T the step's transpose
+  // of A (which = 0) or B (which = 1); the fresh accumulator spans all D
+  // columns in dK/dV (one wait a product, not two) and 64 in dQ, whose
+  // registers also hold Q's hi
+  __device__ void accumulate(int it, float (&acc)[D / 2],
+                             uint32_t (&hi)[STEP / 8][4],
+                             uint32_t (&lo)[STEP / 8][4], int which) const {
+    const int s = it & 1;
+    mbar_wait(&t_full[s], ph(it, 2));
+    hopper::pv_tf32x3<D, STEP, NTR == 2 ? D : 64>(
+        acc, hi, lo, which ? bt : at, which ? bt_lo : at_lo, s * STEP / 8);
+  }
+
+  __device__ void release_t(int it) const {
+    if (threadIdx.x % 32 == 0) mbar_arrive(&t_empty[it & 1]);
+  }
+};
+
+// rows 8i apart (i = 0, 1) of a 64-row f32 accumulator: the thread's
+// columns 8j + 2q, +1 of dst row `row`
+template <int D>
+__device__ __forceinline__ void store_f32_row(float* row,
+                                              const float (&d)[D / 2], int i,
+                                              int qd) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    *reinterpret_cast<float2*>(row + 8 * j + 2 * qd) =
+        make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+}
+
+// ---- f32 backward: dK, dV (one block per key tile) -------------------------
+
+template <int D>
+__global__ void __launch_bounds__(tc_threads(1), 1)
+dkdv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int H, int n, Strides s,
+                   float scale) {
+  using P = BwdF32Pipe<D, 2>;
+  constexpr int STEP = P::STEP;
+  extern __shared__ uint8_t smem_raw[];
+  const P pp(smem_raw);
+
+  const int kt = blockIdx.x;                   // low key tiles: most work
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = kt * P::R;
+  const int n_it = (n + STEP - 1) / STEP - k0 / STEP;   // diagonal down
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) pp.init();
+  __syncthreads();
+  if (warp == 4) {                             // the copies
+    if (lane == 0) pp.produce(&tk, &tv, &tq, &tdo, k0, k0, h, b, n_it);
+    return;
+  }
+  if (warp > 4) {                              // the splits
+    pp.convert(n_it, threadIdx.x - 5 * 32);
+    return;
+  }
+
+  const int qd = lane % 4;
+  const int kr = 16 * warp + lane / 4;         // tile key, i = 0
+  const float sl2 = scale * LOG2E;
+  const float* lse_bh = lse + int64_t(bh) * n;
+  const float* del_bh = delta + int64_t(bh) * n;
+  float sacc[STEP / 2], pacc[STEP / 2];        // S^T, dP^T: keys x queries
+  float dvacc[D / 2], dkacc[D / 2];
+  zero_regs(dvacc);
+  zero_regs(dkacc);
+  uint32_t fhi[STEP / 8][4], flo[STEP / 8][4];
+
+  mbar_wait(pp.x_ready, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = k0 + it * STEP;
+    // lse and delta of the thread's queries 8j + 2qd + c, loaded ahead of
+    // the products and used after them; 0 past T
+    float l2[STEP / 8][2], dl[STEP / 8][2];
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = q0 + 8 * j + 2 * qd + c;
+        l2[j][c] = qi < n ? lse_bh[qi] : 0.f;
+        dl[j][c] = qi < n ? del_bh[qi] : 0.f;
+      }
+    pp.template products<false>(it, sacc, pacc);
+
+    // p^T = exp(s*scale - lse), 0 where the key is past the query or T;
+    // ds^T * scale = p^T (dP^T - delta) * scale
+    const bool edge = q0 < k0 + 16 * warp + 15 || q0 + STEP > n ||
+                      k0 + 16 * warp + 16 > n;
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float x = exp2f(fmaf(sacc[e], sl2, -l2[j][c] * LOG2E));
+          if (edge) {
+            const int qi = q0 + 8 * j + 2 * qd + c, kc = k0 + kr + 8 * i;
+            if (kc > qi || qi >= n || kc >= n) x = 0.f;
+          }
+          sacc[e] = x;
+          pacc[e] = (pacc[e] - dl[j][c]) * x * scale;
+        }
+    hopper::split_frags<STEP>(fhi, flo, sacc);
+    pp.accumulate(it, dvacc, fhi, flo, 1);       // dV += P^T dO
+    hopper::split_frags<STEP>(fhi, flo, pacc);
+    pp.accumulate(it, dkacc, fhi, flo, 0);       // dK += (dS scale)^T Q
+    pp.release_t(it);
+  }
+
+  const int64_t base = b * s.b + h * s.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kc = k0 + kr + 8 * i;
+    if (kc < n) {
+      store_f32_row<D>(dk + base + int64_t(kc) * s.t, dkacc, i, qd);
+      store_f32_row<D>(dv + base + int64_t(kc) * s.t, dvacc, i, qd);
+    }
+  }
+}
+
+// ---- f32 backward: dQ (one block per query tile) ---------------------------
+
+template <int D>
+__global__ void __launch_bounds__(tc_threads(1), 1)
+dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int H, int n, Strides s, float scale) {
+  using P = BwdF32Pipe<D, 1>;
+  constexpr int STEP = P::STEP;
+  extern __shared__ uint8_t smem_raw[];
+  const P pp(smem_raw);
+
+  const int nt = (n + P::R - 1) / P::R;
+  const int qt = nt - 1 - blockIdx.x;          // the longest rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = qt * P::R;
+  const int n_it = min(q0 + P::R - 1, n - 1) / STEP + 1;   // to the diagonal
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) pp.init();
+  __syncthreads();
+  if (warp == 4) {                             // the copies
+    if (lane == 0) pp.produce(&tq, &tdo, &tk, &tv, q0, 0, h, b, n_it);
+    return;
+  }
+  if (warp > 4) {                              // the splits
+    pp.convert(n_it, threadIdx.x - 5 * 32);
+    return;
+  }
+
+  const int qd = lane % 4;
+  const int r0 = 16 * warp + lane / 4;         // tile row, i = 0
+  const float sl2 = scale * LOG2E;
+  float lr[2], dr[2];                          // lse (log2 units), delta
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    lr[i] = qi < n ? lse[int64_t(bh) * n + qi] * LOG2E : 0.f;
+    dr[i] = qi < n ? delta[int64_t(bh) * n + qi] : 0.f;
+  }
+  float sacc[STEP / 2], pacc[STEP / 2], dqacc[D / 2];
+  zero_regs(dqacc);
+  uint32_t fhi[STEP / 8][4], flo[STEP / 8][4];
+
+  mbar_wait(pp.x_ready, 0);
+  uint32_t qa[D / 8][4];                       // Q's hi, read once
+  hopper::load_q_frags<D>(qa, pp.x, P::R);
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = it * STEP;
+    pp.template products<true>(it, sacc, pacc, qa);
+
+    // ds * scale = p (dP - delta) * scale, p = exp(s*scale - lse), 0
+    // where the key is past the query or T
+    const bool edge = k0 + STEP - 1 > q0 + 16 * warp || k0 + STEP > n;
+#pragma unroll
+    for (int j = 0; j < STEP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float x = exp2f(fmaf(sacc[e], sl2, -lr[i]));
+          if (edge) {
+            const int kc = k0 + 8 * j + 2 * qd + c, qi = q0 + r0 + 8 * i;
+            if (kc > qi || kc >= n) x = 0.f;
+          }
+          pacc[e] = (pacc[e] - dr[i]) * x * scale;
+        }
+    hopper::split_frags<STEP>(fhi, flo, pacc);
+    pp.accumulate(it, dqacc, fhi, flo, 0);       // dQ += (dS scale) K
+    pp.release_t(it);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    if (qi < n)
+      store_f32_row<D>(dq + b * s.b + h * s.h + int64_t(qi) * s.t, dqacc, i,
+                       qd);
   }
 }
 
@@ -1139,18 +1350,53 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
 }
 
 template <int D>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout,
+                           const float* lse, float* delta, void* dq,
+                           void* dk, void* dv, int B, int H, int n,
+                           Strides s, float scale, cudaStream_t stream) {
+  using PK = BwdF32Pipe<D, 2>;
+  using PQ = BwdF32Pipe<D, 1>;
+  cudaError_t err =
+      launch_delta<float, D>(o, dout, delta, B, H, n, s, stream);
+  if (err != cudaSuccess) return err;
+  // dK/dV: K, V resident (64 rows), Q, dO streamed (STEP rows);
+  // dQ: Q, dO resident, K, V streamed
+  CUtensorMap kk, kv, kq, kdo, qq, qdo, qk, qv;
+  if (!bthd_map(&kk, k, B, H, n, D, s, PK::R, 4) ||
+      !bthd_map(&kv, v, B, H, n, D, s, PK::R, 4) ||
+      !bthd_map(&kq, q, B, H, n, D, s, PK::STEP, 4) ||
+      !bthd_map(&kdo, dout, B, H, n, D, s, PK::STEP, 4) ||
+      !bthd_map(&qq, q, B, H, n, D, s, PQ::R, 4) ||
+      !bthd_map(&qdo, dout, B, H, n, D, s, PQ::R, 4) ||
+      !bthd_map(&qk, k, B, H, n, D, s, PQ::STEP, 4) ||
+      !bthd_map(&qv, v, B, H, n, D, s, PQ::STEP, 4))
+    return cudaErrorInvalidValue;
+  err = set_smem(dkdv_f32_tc_kernel<D>, PK::SMEM);
+  if (err != cudaSuccess) return err;
+  dkdv_f32_tc_kernel<D>
+      <<<dim3((n + PK::R - 1) / PK::R, B * H), tc_threads(1), PK::SMEM,
+         stream>>>(kk, kv, kq, kdo, lse, delta, static_cast<float*>(dk),
+                   static_cast<float*>(dv), H, n, s, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = set_smem(dq_f32_tc_kernel<D>, PQ::SMEM);
+  if (err != cudaSuccess) return err;
+  dq_f32_tc_kernel<D>
+      <<<dim3((n + PQ::R - 1) / PQ::R, B * H), tc_threads(1), PQ::SMEM,
+         stream>>>(qq, qdo, qk, qv, lse, delta, static_cast<float*>(dq), H,
+                   n, s, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, float* delta, void* dq,
                             void* dk, void* dv, int B, int H, int n,
                             Strides s, float scale, cudaStream_t stream) {
-  const int64_t rows = int64_t(B) * n * H;
-  const int warps_per_block = NT / 32;
-  delta_kernel<bf16, D><<<unsigned((rows + warps_per_block - 1) /
-                                   warps_per_block), NT, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, B,
-      H, n, s);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      launch_delta<bf16, D>(o, dout, delta, B, H, n, s, stream);
   if (err != cudaSuccess) return err;
   if (two_warpgroups(B, H, n))
     return launch_bwd_tc<D, 2>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
@@ -1193,11 +1439,11 @@ extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
   const Strides s{int64_t(sb), int64_t(st), int64_t(sh)};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                 H, n, s, scale, cs);
+    return launch_bwd_f32<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                              H, n, s, scale, cs);
   if (dtype == 0 && head_dim == 128)
-    return launch_bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                  H, n, s, scale, cs);
+    return launch_bwd_f32<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               H, n, s, scale, cs);
   if (dtype == 1 && head_dim == 64)
     return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                H, n, s, scale, cs);
@@ -1206,3 +1452,4 @@ extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
                                 H, n, s, scale, cs);
   return int(cudaErrorInvalidValue);
 }
+

@@ -155,16 +155,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 }
 
 // Rows row0 .. row0+rows-1 of the (b, h) slice, all D columns of ES
-// bytes, as D*ES/128 boxes of `rows` x 128 bytes one after another at
-// `dst`.
+// bytes, as D*ES/128 boxes of `rows` x 128 bytes at `dst`, one every
+// `pitch` rows (default: one after another).
 template <int D, int ES = 2>
 __device__ __forceinline__ void tma_load_tile(void* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int rows,
-                                              int row0, int h, int b) {
+                                              int row0, int h, int b,
+                                              int pitch = 0) {
+  const int step = (pitch ? pitch : rows) * 128;
 #pragma unroll
   for (int box = 0; box < D * ES / 128; ++box)
-    tma_load_4d(static_cast<char*>(dst) + box * rows * 128, map, bar,
+    tma_load_4d(static_cast<char*>(dst) + box * step, map, bar,
                 box * (128 / ES), h, row0, b);
 }
 
@@ -325,6 +327,30 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
                                               uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32],
+                                                  uint64_t da, uint64_t db,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " GEO_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : GEO_F8(0), GEO_F8(8), GEO_F8(16), GEO_F8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8],
+                                                  uint64_t da, uint64_t db,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : GEO_F8(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16],
@@ -507,43 +533,53 @@ __device__ __forceinline__ int sw128(int r, int c) {
 // A V tile as TMA lands it (BN keys down the rows, D f32 columns in
 // boxes of 32) into Vt and Vt_lo (D rows, BN keys along them in boxes of
 // 32, keys 0 2 4 6 1 3 5 7 in each group of 8), by thread t of n.  A
-// unit is 4 keys of one parity in a group by 4 columns: four 16-byte
-// loads, a 4 x 4 transpose in registers, four 16-byte stores each of hi
-// and lo.  Neighbouring threads take neighbouring (group, parity), so a
-// warp's stores fill every bank.
+// unit (of BN/4 * D/4) is 4 keys of one parity in a group by 4 columns:
+// four 16-byte loads, a 4 x 4 transpose in registers, four 16-byte
+// stores each of hi and lo.  Neighbouring threads take neighbouring
+// (group, parity), so a warp's stores fill every bank.  The unit form
+// puts the keys at positions kofs .. kofs+BN-1 of Vt's rows (a ring of
+// several BN-key stages in one transposed tile, when BN < 32) and reads
+// V's boxes vrows rows apart.
+template <int D, int BN>
+__device__ __forceinline__ void split_transpose_unit(const uint8_t* V,
+                                                     uint8_t* Vt,
+                                                     uint8_t* Vt_lo, int u,
+                                                     int kofs, int vrows) {
+  constexpr int GH = BN / 4;                   // (group, parity) pairs
+  const int gh = u % GH, c = u / GH;           // c: the column quad
+  const int g = gh / 2, par = gh % 2;
+  float x[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 8 * g + par + 2 * i;         // the key
+    const float4 f = *reinterpret_cast<const float4*>(
+        V + (c / 8) * vrows * 128 + sw128(r, c % 8));
+    x[i][0] = f.x;
+    x[i][1] = f.y;
+    x[i][2] = f.z;
+    x[i][3] = f.w;
+  }
+  const int kp = kofs + 8 * g + 4 * par;       // its first key position
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int d = 4 * c + e;
+    uint4 h, l;
+    split_tf32(x[0][e], h.x, l.x);
+    split_tf32(x[1][e], h.y, l.y);
+    split_tf32(x[2][e], h.z, l.z);
+    split_tf32(x[3][e], h.w, l.w);
+    const int off = (kp / 32) * D * 128 + sw128(d, (kp % 32) / 4);
+    *reinterpret_cast<uint4*>(Vt + off) = h;
+    *reinterpret_cast<uint4*>(Vt_lo + off) = l;
+  }
+}
+
 template <int D, int BN>
 __device__ __forceinline__ void split_transpose(const uint8_t* V,
                                                 uint8_t* Vt, uint8_t* Vt_lo,
                                                 int t, int n) {
-  constexpr int GH = BN / 4;                   // (group, parity) pairs
-  for (int u = t; u < GH * (D / 4); u += n) {
-    const int gh = u % GH, c = u / GH;         // c: the column quad
-    const int g = gh / 2, par = gh % 2;
-    float x[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 8 * g + par + 2 * i;       // the key
-      const float4 f = *reinterpret_cast<const float4*>(
-          V + (c / 8) * BN * 128 + sw128(r, c % 8));
-      x[i][0] = f.x;
-      x[i][1] = f.y;
-      x[i][2] = f.z;
-      x[i][3] = f.w;
-    }
-    const int kp = 8 * g + 4 * par;            // its first key position
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * c + e;
-      uint4 h, l;
-      split_tf32(x[0][e], h.x, l.x);
-      split_tf32(x[1][e], h.y, l.y);
-      split_tf32(x[2][e], h.z, l.z);
-      split_tf32(x[3][e], h.w, l.w);
-      const int off = (kp / 32) * D * 128 + sw128(d, (kp % 32) / 4);
-      *reinterpret_cast<uint4*>(Vt + off) = h;
-      *reinterpret_cast<uint4*>(Vt_lo + off) = l;
-    }
-  }
+  for (int u = t; u < BN / 4 * (D / 4); u += n)
+    split_transpose_unit<D, BN>(V, Vt, Vt_lo, u, 0, BN);
 }
 
 template <int D>
@@ -713,18 +749,20 @@ __device__ __forceinline__ void qk_tf32x3(float (&s)[BN / 2],
 }
 
 // O += P V in three TF32 products over BN keys, P from registers
-// (split_frags), V from Vt and Vt_lo.  Each 64 columns of O are formed in
-// a fresh accumulator, small products first, and added to O in f32, so
-// the tensor cores' accumulation never sees O's running sum.
-template <int D, int BN>
+// (split_frags), V from Vt and Vt_lo, whose depth steps kk0 .. kk0 +
+// BN/8 - 1 hold the keys.  Each W columns of O are formed in a fresh
+// accumulator, small products first, and added to O in f32, so the
+// tensor cores' accumulation never sees O's running sum.
+template <int D, int BN, int W = 64>
 __device__ __forceinline__ void pv_tf32x3(float (&o)[D / 2],
                                           uint32_t (&hi)[BN / 8][4],
                                           uint32_t (&lo)[BN / 8][4],
                                           const uint8_t* Vt,
-                                          const uint8_t* Vt_lo) {
-  float t[32];
+                                          const uint8_t* Vt_lo,
+                                          int kk0 = 0) {
+  float t[W / 2];
 #pragma unroll
-  for (int half = 0; half < D / 64; ++half) {
+  for (int part = 0; part < D / W; ++part) {
     zero_regs(t);
     fence_frags(hi);
     fence_frags(lo);
@@ -732,18 +770,18 @@ __device__ __forceinline__ void pv_tf32x3(float (&o)[D / 2],
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 8; ++kk)
-      wgmma_tf32_rs<64>(t, hi[kk], smem_desc_k(Vt_lo, D, 64 * half, kk));
+      wgmma_tf32_rs<W>(t, hi[kk], smem_desc_k(Vt_lo, D, W * part, kk0 + kk));
 #pragma unroll
     for (int kk = 0; kk < BN / 8; ++kk)
-      wgmma_tf32_rs<64>(t, lo[kk], smem_desc_k(Vt, D, 64 * half, kk));
+      wgmma_tf32_rs<W>(t, lo[kk], smem_desc_k(Vt, D, W * part, kk0 + kk));
 #pragma unroll
     for (int kk = 0; kk < BN / 8; ++kk)
-      wgmma_tf32_rs<64>(t, hi[kk], smem_desc_k(Vt, D, 64 * half, kk));
+      wgmma_tf32_rs<W>(t, hi[kk], smem_desc_k(Vt, D, W * part, kk0 + kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(t);
 #pragma unroll
-    for (int x = 0; x < 32; ++x) o[32 * half + x] += t[x];
+    for (int x = 0; x < W / 2; ++x) o[W / 2 * part + x] += t[x];
   }
 }
 

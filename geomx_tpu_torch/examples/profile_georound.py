@@ -38,9 +38,9 @@ import sys
 # the kernels of csrc/quantize.cu, by their (demangled) names
 CODEC_KERNELS = ("quant_consecutive", "quant_strided")   # also dequant_*
 DGC_KERNELS = ("dgc_update<",)
-FLASH_KERNELS = ("fwd_f32_tc_kernel<", "delta_kernel<", "dkdv_kernel<",
-                 "dq_kernel<", "fwd_tc_kernel<", "dkdv_tc_kernel<",
-                 "dq_tc_kernel<")
+FLASH_KERNELS = ("fwd_f32_tc_kernel<", "delta_kernel<",
+                 "dkdv_f32_tc_kernel<", "dq_f32_tc_kernel<", "fwd_tc_kernel<",
+                 "dkdv_tc_kernel<", "dq_tc_kernel<")
 # the flagship LM (training.build_flagship_lm's widths), as chip_smoke.py
 # drives it
 LM_FLAGS = ["--vocab", "8192", "--d-model", "384", "--layers", "4",

@@ -19,11 +19,10 @@ kernels under the name with ``_f32``):
 - :func:`flash_bwd` runs the three backward kernels (delta, dK/dV, dQ)
   in one call: ``(dq, dk, dv)``.
 
-Each wrapper checks device, dtype, shape, contiguity and (where the
-kernels read through TMA: the forward in both dtypes, the bf16
-backward) 16-byte alignment, allocates every output with
-``torch.empty``, launches on the current stream and raises if the
-launch reports a CUDA error.
+Each wrapper checks device, dtype, shape, contiguity and 16-byte
+alignment (every kernel but ``delta`` reads through TMA), allocates
+every output with ``torch.empty``, launches on the current stream and
+raises if the launch reports a CUDA error.
 """
 
 from __future__ import annotations
@@ -166,8 +165,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(name, t, q)
     want = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _check("lse", lse, want)
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q, k, v, o, do)
+    _check_aligned(q, k, v, o, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv

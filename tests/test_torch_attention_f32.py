@@ -1,7 +1,8 @@
 """The arithmetic of the f32 attention kernels on the tensor cores
-(``fwd_f32_tc_kernel`` in ``csrc/flash_attention.cu``,
-``block_attn_f32_tc_kernel`` in ``csrc/block_attention.cu``), emulated in
-torch on the CPU and held against the JAX package.
+(``fwd_f32_tc_kernel``, ``dkdv_f32_tc_kernel`` and ``dq_f32_tc_kernel``
+in ``csrc/flash_attention.cu``, ``block_attn_f32_tc_kernel`` in
+``csrc/block_attention.cu``), emulated in torch on the CPU and held
+against the JAX package.
 
 What is emulated (``csrc/hopper_tiles.cuh``, 3xTF32): an f32 operand x
 splits into hi = x with its low 13 mantissa bits cleared (what the tensor
@@ -14,13 +15,19 @@ block kernel's in one pass, masked scores exactly -1e30 after the scale,
 keys past Tk left out; the flash forward's with -inf masking in log2
 units), the block kernel's skip rule (key steps past the last visible one
 are left out where every row of the query tile sees a key) and its fully
-masked query tile (o = 1 V by the same three products).
+masked query tile (o = 1 V by the same three products).  The flash
+backward's: 64-key tiles with query steps of 16 (D = 128) or 32 (D =
+64) from the diagonal down for dK and dV, 64-query tiles with key steps
+of the same size up to the diagonal for dQ, p = exp2(s scale log2 e -
+lse log2 e) with the causal mask, ds scaled before its products, and
+each step's product added to the sum in f32.
 
 References, on the same numpy inputs: JAX's ``flash_block_attention``
 with its Pallas kernel in interpret mode, and for the flash forward
 JAX's ``dense_attention`` and the log-sum-exp of the scaled scores in
 float64 (JAX's bundled flash kernel does not run in interpret mode on
-this JAX; ``tests/test_torch_flash.py`` uses the same reference).
+this JAX; ``tests/test_torch_flash.py`` uses the same reference), and
+for the flash backward ``jax.grad`` of ``dense_attention``.
 
 Gate: the f32 gate of ``chip_smoke.py`` and the card tests, 1e-4 times
 max(1, the largest reference entry) on the largest error and a relative
@@ -29,7 +36,8 @@ L2 of 1e-4, over the entries a fully masked row does not fill; there
 2^-20 of each product, far inside it.  The negative control, one TF32
 product (the lo terms dropped), is off by about 2^-10 a product and must
 fail the same gate at D = 128: a single TF32 product would change what
-f32 means.
+f32 means.  In the backward, delta = rowsum(dO * O) takes O from the
+emulated forward, as the kernels take it from the forward kernel.
 """
 
 import math
@@ -59,13 +67,13 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, three: bool) -> torch.Tensor:
-    """a @ b as the kernels form it: three TF32 products (hi hi, hi lo,
-    lo hi) or, for the control, one (hi hi)."""
+    """a @ b as the kernels form it: three TF32 products, the small ones
+    (hi lo, lo hi) summed first and then hi hi, or, for the control, one
+    (hi hi)."""
     ah, bh = _tf32(a), _tf32(b)
-    out = ah @ bh
-    if three:
-        out = out + ah @ _tf32(b - bh) + _tf32(a - ah) @ bh
-    return out
+    if not three:
+        return ah @ bh
+    return (ah @ _tf32(b - bh) + _tf32(a - ah) @ bh) + ah @ bh
 
 
 def emulate_block(q, k, v, offs, causal, three=True):
@@ -147,6 +155,58 @@ def emulate_flash(q, k, v, three=True):
         o_out[:, :, rows] = o / l[..., None]
         lse[:, :, rows] = m2 * LN2 + torch.log(l)
     return o_out.permute(0, 2, 1, 3), lse
+
+
+def emulate_flash_bwd(q, k, v, o, lse, do, three=True):
+    """The f32 flash backward (causal) on [B, T, H, D] tensors, ``lse``
+    [B, H, T]: ``(dq, dk, dv)`` as the kernels form them."""
+    B, T, H, D = q.shape
+    step = 16 if D == 128 else 32        # rows a step (shared memory)
+    scale = np.float32(1.0 / math.sqrt(D))
+    sl2 = scale * LOG2E
+    qh, kh, vh, oh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, o, do))
+    lse2 = lse * LOG2E
+    delta = (doh * oh).sum(-1)                          # delta_kernel
+    dq, dk, dv = (torch.zeros(B, H, T, D) for _ in range(3))
+
+    def p_ds(s, dp, qi, kc, l2, dl):
+        """p = exp(s scale - lse), masked; ds * scale."""
+        p = torch.exp2(s * sl2 - l2)
+        p = torch.where(kc[None, :] <= qi[:, None], p, torch.tensor(0.0))
+        return p, (dp - dl) * p * scale
+
+    for k0 in range(0, T, BM):                          # dK/dV blocks
+        ke = min(k0 + BM, T)
+        kt, vt = kh[:, :, k0:ke], vh[:, :, k0:ke]
+        kc = torch.arange(k0, ke)
+        dkt = torch.zeros(B, H, ke - k0, D)
+        dvt = torch.zeros(B, H, ke - k0, D)
+        for q0 in range(k0, T, step):                   # diagonal down
+            qe = min(q0 + step, T)
+            qs, dos = qh[:, :, q0:qe], doh[:, :, q0:qe]
+            st = _mm(kt, qs.transpose(-1, -2), three)   # S^T
+            dpt = _mm(vt, dos.transpose(-1, -2), three)  # dP^T
+            p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2),
+                         torch.arange(q0, qe), kc,
+                         lse2[:, :, q0:qe, None], delta[:, :, q0:qe, None])
+            dvt = dvt + _mm(p.transpose(-1, -2), dos, three)
+            dkt = dkt + _mm(ds.transpose(-1, -2), qs, three)
+        dk[:, :, k0:ke], dv[:, :, k0:ke] = dkt, dvt
+    for q0 in range(0, T, BM):                          # dQ blocks
+        qe = min(q0 + BM, T)
+        qt, dot_ = qh[:, :, q0:qe], doh[:, :, q0:qe]
+        qi = torch.arange(q0, qe)
+        dqt = torch.zeros(B, H, qe - q0, D)
+        for k0 in range(0, (qe - 1) // step * step + 1, step):  # to diagonal
+            ke = min(k0 + step, T)
+            ks, vs = kh[:, :, k0:ke], vh[:, :, k0:ke]
+            p, ds = p_ds(_mm(qt, ks.transpose(-1, -2), three),
+                         _mm(dot_, vs.transpose(-1, -2), three), qi,
+                         torch.arange(k0, ke), lse2[:, :, q0:qe, None],
+                         delta[:, :, q0:qe, None])
+            dqt = dqt + _mm(ds, ks, three)
+        dq[:, :, q0:qe] = dqt
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
 
 
 def _errors(got, ref):
@@ -239,7 +299,37 @@ def test_flash_forward_3xtf32_matches_jax_reference(D, T):
     assert _passes([(o.numpy(), jo), (lse.numpy(), ref_lse)])
 
 
-@pytest.mark.parametrize("kernel", ["block", "flash"])
+def _j_grads(q, k, v, do):
+    """JAX's gradients of causal ``dense_attention`` (f32) against the
+    cotangent ``do``."""
+    _, vjp = jax.vjp(lambda a, b, c: j_dense(a, b, c, causal=True),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do))]
+
+
+def _bwd_inputs(T, D, seed):
+    """q, k, v, do (numpy) and the emulated forward's o, lse (torch)."""
+    q, k, v = _inputs(2, T, T, 2, D, seed)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)
+    o, lse = emulate_flash(*(torch.from_numpy(a) for a in (q, k, v)))
+    return q, k, v, do, o, lse
+
+
+# T = 1, a ragged T (a 64-row tile and a part step), and T past two tiles
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 100, 200])
+def test_flash_backward_3xtf32_matches_jax_grad(D, T):
+    q, k, v, do, o, lse = _bwd_inputs(T, D, seed=2 * T + D)
+    got = emulate_flash_bwd(*(torch.from_numpy(a) for a in (q, k, v)), o,
+                            lse, torch.from_numpy(do))
+    refs = _j_grads(q, k, v, do)
+    for g, r, name in zip(got, refs, ("dq", "dk", "dv")):
+        err, allow, rel = _errors(g.numpy(), r)
+        assert err <= allow and rel <= TOL, (name, err, allow, rel)
+
+
+@pytest.mark.parametrize("kernel", ["block", "flash", "flash_bwd"])
 def test_single_tf32_product_fails_the_f32_gate(j_block, kernel):
     """The control: with the lo terms dropped, the emulation of the same
     tiles misses the gate at D = 128, while the three products meet it;
@@ -252,12 +342,23 @@ def test_single_tf32_product_fails_the_f32_gate(j_block, kernel):
         def run(three):
             m, l, o, _ = emulate_block(tq, tk, tv, (80, 0), True, three)
             return [(m.numpy(), jm), (l.numpy(), jl), (o.numpy(), jo)]
-    else:
+    elif kernel == "flash":
         jo = np.asarray(j_dense(*(jnp.asarray(a) for a in (q, k, v)),
                                 causal=True), np.float32)
 
         def run(three):
             return [(emulate_flash(tq, tk, tv, three)[0].numpy(), jo)]
+    else:
+        # the backward's products alone: o and lse from the three-product
+        # forward in both runs
+        q, k, v, do, o, lse = _bwd_inputs(80, 128, seed=3)
+        refs = _j_grads(q, k, v, do)
+        args = [torch.from_numpy(a) for a in (q, k, v)]
+
+        def run(three):
+            got = emulate_flash_bwd(*args, o, lse, torch.from_numpy(do),
+                                    three)
+            return [(g.numpy(), r) for g, r in zip(got, refs)]
 
     assert _passes(run(True))
     assert not _passes(run(False))
