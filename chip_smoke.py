@@ -44,10 +44,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel does) than the unrounded one; the ptxas log must show no
    spill in a tensor-core kernel; CUDA-event times of kernel, plain version
    and ``scaled_dot_product_attention`` (a yardstick only, never on the
-   port's path), each beside its bound (in f32: three TF32 products at
-   495 TFLOP/s), and at the LM's and the MFU shape in both dtypes each
-   kernel's device time a call (``torch.profiler`` over 10 calls: the
-   backward's delta, dK/dV and dQ kernels apart); the f32 forward and
+   port's path; kernel and SDPA timed in turns), each beside its bound
+   (in f32: three TF32 products at 495 TFLOP/s), and at the LM's and the
+   MFU shape in both dtypes each kernel's device time a call
+   (``torch.profiler`` over 10 calls: the backward's kernels apart, in
+   bf16 the delta pass that zeroes the f32 dQ scratch, the five-product
+   dK/dV/dQ kernel and the dQ convert); at the LM's shape the host time
+   of each piece of a flash call (``examples/time_flash_launch.py``); the
+   f32 forward and
    the f32 backward at the MFU shape must each take less event time than
    its plain version and than the FMA kernels they replaced, as last
    measured (``FMA_LAST_MS``);
@@ -702,22 +706,25 @@ def check_flash(dev) -> dict:
                           for t in (q, k, v))
             so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
             sdo = do.transpose(1, 2).contiguous()
-            # the plain version takes 10-20 ms a call at the MFU shape
+            # the plain version takes 10-20 ms a call at the MFU shape;
+            # kernel and SDPA in turns (kernel, SDPA, SDPA, kernel): at the
+            # LM's shape events move with the host between calls
             it, plain_it = 50, (5 if shape[1] >= 2048 else 50)
+            fwd_ms, fwd_lib = _in_turns(
+                lambda: FK.flash_fwd(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, is_causal=True), it)
+            bwd_ms, bwd_lib = _in_turns(
+                lambda: FK.flash_bwd(q, k, v, o, lse, do, scale),
+                lambda: torch.autograd.grad(
+                    so, (sq, sk, sv), sdo, retain_graph=True), it)
             times = {
-                "flash_fwd": (
-                    _time_ms(lambda: FK.flash_fwd(q, k, v, scale), it),
-                    _time_ms(lambda: FA.flash_attention_ref(q, k, v, scale),
-                             plain_it),
-                    _time_ms(lambda: F.scaled_dot_product_attention(
-                        sq, sk, sv, is_causal=True), it)),
-                "flash_bwd": (
-                    _time_ms(lambda: FK.flash_bwd(q, k, v, o, lse, do,
-                                                  scale), it),
-                    _time_ms(lambda: FA.flash_attention_bwd_ref(
-                        q, k, v, o, lse, do, scale), plain_it),
-                    _time_ms(lambda: torch.autograd.grad(
-                        so, (sq, sk, sv), sdo, retain_graph=True), it)),
+                "flash_fwd": (fwd_ms, _time_ms(
+                    lambda: FA.flash_attention_ref(q, k, v, scale),
+                    plain_it), fwd_lib),
+                "flash_bwd": (bwd_ms, _time_ms(
+                    lambda: FA.flash_attention_bwd_ref(
+                        q, k, v, o, lse, do, scale), plain_it), bwd_lib),
             }
             costs = flash_costs(shape, dt)
             rec = {"rel_l2": rel, "rel_l2_to_unrounded": control}
@@ -736,6 +743,9 @@ def check_flash(dev) -> dict:
                     log(f"flash {name} {shape} {dt}: device ms by kernel "
                         + "; ".join(f"{n[:40]} {t:.4f}"
                                     for n, t in by.items()))
+            if shape == FLASH_MAIN[0]:
+                rec["launch_path_us"] = _flash_launch_path(
+                    q, k, v, o, lse, do, scale)
             for name, (ms, plain_ms, lib_ms) in times.items():
                 flops, nbytes = costs[name]
                 bound_ms, bound_by = _bound(flops, nbytes, dt, name)
@@ -757,6 +767,24 @@ def check_flash(dev) -> dict:
             out["by_shape"][f"{shape} {dt}"] = rec
             del q, k, v, do, o, lse, ro, rlse, grads, refs, sq, sk, sv, so
             torch.cuda.empty_cache()
+    return out
+
+
+def _flash_launch_path(q, k, v, o, lse, do, scale) -> dict:
+    """Host time (µs) of one flash call's pieces at the LM's shape
+    (``examples/time_flash_launch.py``, 500 calls a piece): the whole
+    call, the wrapper's checks, allocations, stream handle, counter, the
+    ``ctypes`` call; inside the library a tensor map encoded, the
+    shared-memory attribute set, ``cudaGetDevice``, ``cudaGetLastError``."""
+    from geomx_tpu_torch.examples import time_flash_launch as TL
+
+    out = {"library": TL.c_pieces(q, 1000)}
+    for fn, parts in TL.pieces(q, k, v, o, lse, do, scale).items():
+        out[fn] = {p: TL._host_us(f, 500) for p, f in parts.items()}
+    dt = str(q.dtype).replace("torch.", "")
+    for fn in ("library", "flash_fwd", "flash_bwd"):
+        log(f"flash launch path {tuple(q.shape)} {dt} {fn} (host us): "
+            + "; ".join(f"{p} {t:.2f}" for p, t in out[fn].items()))
     return out
 
 
@@ -1407,6 +1435,14 @@ ROUTES = {"quantize_2bit": _CODEC, "dequantize_2bit": _CODEC,
           "dgc_update": _CODEC, "flash_fwd": _FLASH, "flash_bwd": _FLASH,
           "flash_fwd_f32": _FLASH, "flash_bwd_f32": _FLASH,
           "block_attn_fwd": _BLOCK, "block_attn_fwd_f32": _BLOCK}
+# the CUDA kernels one call of each flash function launches, in order
+FLASH_CUDA_KERNELS = {
+    "flash_fwd": ["fwd_tc_kernel"], "flash_fwd_f32": ["fwd_f32_tc_kernel"],
+    "flash_bwd": ["delta_kernel (with the f32 dQ scratch zeroed)",
+                  "bwd_tc_kernel (dK, dV and dQ: five products)",
+                  "dq_convert_kernel"],
+    "flash_bwd_f32": ["delta_kernel", "dkdv_f32_tc_kernel",
+                      "dq_f32_tc_kernel"]}
 # launches a path must make exactly: the DGC update once per key per
 # party per step
 PATH_EXACT = {"bsc": {"dgc_update": 2 * CNN_KEYS * STEPS}}
@@ -1542,6 +1578,12 @@ def main() -> int:
             mfu_shape, mfu_dt = FLASH_MFU[0], dt
             m = flash["by_shape"][f"{mfu_shape} {mfu_dt}"][fn]
             where = {"shape": list(main_shape), "dtype": dt,
+                     "cuda_kernels": FLASH_CUDA_KERNELS[name],
+                     "device_ms_by_kernel": {
+                         "lm": flash["by_shape"][f"{main_shape} {dt}"][
+                             f"{fn}_device_ms"],
+                         "mfu": flash["by_shape"][f"{mfu_shape} {dt}"][
+                             f"{fn}_device_ms"]},
                      "at_mfu_shape": {
                          "shape": list(mfu_shape), "dtype": mfu_dt,
                          **{key: m[key] for key in (

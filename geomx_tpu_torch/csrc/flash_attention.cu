@@ -1,5 +1,6 @@
 // Causal flash attention for Hopper (sm_90a): forward, and the backward
-// as three kernels (delta = rowsum(dO * O), dK/dV, dQ).
+// as a delta pass (delta = rowsum(dO * O)) and, in bf16, one kernel for
+// dK, dV and dQ and a pass that rounds dQ, in f32 a dK/dV and a dQ kernel.
 //
 // Replaces JAX's bundled Pallas TPU flash attention
 // (jax.experimental.pallas.ops.tpu.flash_attention, called by
@@ -51,10 +52,12 @@
 //   * forward: one block per (query tile, b*h), the longest rows first;
 //     key tiles of 128, tiles above the diagonal skipped, only tiles
 //     that cross the diagonal or T masked;
-//   * backward: delta_kernel, then one block per key tile (queries from
-//     the diagonal down, 64 at a step) for dK/dV and one per query tile
-//     (keys 64 at a step) for dQ; no atomics, so the same bits run to
-//     run;
+//   * backward: delta_kernel (which also zeroes an f32 dQ scratch), then
+//     one block per key tile (queries from the diagonal down, 64 at a
+//     step) forming dK, dV and each step's dQ partial in five products,
+//     the partials added into the scratch by TMA's reduce-add (in an
+//     order that may change from run to run), then dq_convert_kernel
+//     (bwd_tc_kernel, below);
 //   * tile height: two consumer warpgroups (128-row tiles) when the grid
 //     of 128-row tiles covers every SM once, else one (64-row tiles,
 //     twice the blocks): the LM's T = 128 gives 48 tiles of 128 for 132
@@ -93,58 +96,129 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <chrono>
+
 #include "hopper_tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;      // threads a block of delta_kernel
-
-template <typename E> __device__ __forceinline__ float to_f(E x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int NT = 256;      // threads a block of delta_kernel, dq_convert
 
 struct Strides {
   int64_t b, t, h;   // elements between rows of b, t and h
 };
 
-// ---- backward: delta = rowsum(dO * O) --------------------------------------
+// blocks of NT threads for `items` items a thread: at most 8 blocks an
+// SM (full occupancy), the rest taken by grid-stride loops
+unsigned grid_for(int64_t items) {
+  const int64_t cap = int64_t(hopper::sm_count()) * 8;
+  const int64_t grid = (items + NT - 1) / NT;
+  return unsigned(grid < 1 ? 1 : grid < cap ? grid : cap);
+}
+
+// ---- backward: delta = rowsum(dO * O); the f32 dQ scratch zeroed --------
+//
+// Bound by bytes: O and dO read once (and, in bf16, the f32 dQ scratch
+// written once), delta written.  A lane loads 16 bytes of O and of dO a
+// round (__ldg), D*ES/16 lanes share a row (8, 16 or 32), so a
+// warp takes 32*16/(D*ES) rows a round; rows in memory order, so a warp's
+// loads are 512 contiguous bytes; the grid is grid_for's (grid-stride).
+// Lanes of a row sum by __shfl_xor.  dq_acc (f32 [B, T, H, D], the same
+// element strides) is zeroed beside O's row when not null.
+
+template <typename E>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b);
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a,
+                                              const uint4& b) {
+  return __uint_as_float(a.x) * __uint_as_float(b.x) +
+         __uint_as_float(a.y) * __uint_as_float(b.y) +
+         __uint_as_float(a.z) * __uint_as_float(b.z) +
+         __uint_as_float(a.w) * __uint_as_float(b.w);
+}
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
+                                                      const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    acc += u.x * v.x + u.y * v.y;
+  }
+  return acc;
+}
 
 template <typename E, int D>
 __global__ void __launch_bounds__(NT)
 delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
-             float* __restrict__ delta, int B, int H, int n, Strides s) {
-  // one warp per row (b, t, h); lanes stride over D
-  const int64_t row = (int64_t(blockIdx.x) * NT + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= int64_t(B) * n * H) return;
-  const int h = int(row % H);
-  const int t = int((row / H) % n);
-  const int b = int(row / (int64_t(H) * n));
-  const int64_t off = b * s.b + t * s.t + h * s.h;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc += to_f<E>(dout[off + d]) * to_f<E>(o[off + d]);
+             float* __restrict__ delta, float* __restrict__ dq_acc, int B,
+             int H, int n, Strides s) {
+  constexpr int EPL = 16 / int(sizeof(E));     // elements a lane
+  constexpr int LPR = D / EPL;                 // lanes a row
+  constexpr int RPW = 32 / LPR;                // rows a warp a round
+  const int64_t rows = int64_t(B) * n * H;
+  const int lane = threadIdx.x & 31, l = lane % LPR;
+  const int64_t warps = int64_t(gridDim.x) * (NT / 32);
+  for (int64_t r0 = (int64_t(blockIdx.x) * NT + threadIdx.x) / 32 * RPW;
+       r0 < rows; r0 += warps * RPW) {        // warp-uniform
+    const int64_t row = r0 + lane / LPR;
+    const int h = int(row % H);
+    const int t = int((row / H) % n);
+    const int b = int(row / (int64_t(H) * n));
+    const int64_t off = b * s.b + t * s.t + h * s.h + l * EPL;
+    float acc = 0.f;
+    if (row < rows) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + off));
+      const uint4 c = __ldg(reinterpret_cast<const uint4*>(dout + off));
+      acc = dot16<E>(a, c);
+      if (dq_acc != nullptr) {
 #pragma unroll
-  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) delta[(int64_t(b) * H + h) * n + t] = acc;
+        for (int z = 0; z < EPL / 4; ++z)
+          reinterpret_cast<float4*>(dq_acc + off)[z] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int w = LPR / 2; w > 0; w >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, w);
+    if (row < rows && l == 0) delta[(int64_t(b) * H + h) * n + t] = acc;
+  }
 }
 
 template <typename E, int D>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta,
-                         int B, int H, int n, Strides s,
+                         float* dq_acc, int B, int H, int n, Strides s,
                          cudaStream_t stream) {
-  const int64_t rows = int64_t(B) * n * H;
-  const int warps_per_block = NT / 32;
-  delta_kernel<E, D><<<unsigned((rows + warps_per_block - 1) /
-                                warps_per_block), NT, 0, stream>>>(
-      static_cast<const E*>(o), static_cast<const E*>(dout), delta, B, H, n,
-      s);
+  constexpr int LPR = D * int(sizeof(E)) / 16;
+  const int64_t lanes = int64_t(B) * n * H * LPR;
+  delta_kernel<E, D><<<grid_for(lanes), NT, 0, stream>>>(
+      static_cast<const E*>(o), static_cast<const E*>(dout), delta, dq_acc,
+      B, H, n, s);
   return cudaGetLastError();
+}
+
+// ---- backward, bf16: dQ rounded once from its f32 sum --------------------
+//
+// Bound by bytes (the f32 sum read, bf16 written); 8 elements a thread a
+// round, 32-byte loads and a 16-byte store; grid_for's grid.
+__global__ void __launch_bounds__(NT)
+dq_convert_kernel(const float4* __restrict__ acc, uint4* __restrict__ dq,
+                  int64_t n8) {
+  for (int64_t i = int64_t(blockIdx.x) * NT + threadIdx.x; i < n8;
+       i += int64_t(gridDim.x) * NT) {
+    const float4 a = acc[2 * i], b = acc[2 * i + 1];
+    uint4 out;
+    out.x = hopper::pack_bf16(a.x, a.y);
+    out.y = hopper::pack_bf16(a.z, a.w);
+    out.z = hopper::pack_bf16(b.x, b.y);
+    out.w = hopper::pack_bf16(b.z, b.w);
+    dq[i] = out;
+  }
 }
 
 // ---- bf16 on the tensor cores ----------------------------------------------
@@ -924,41 +998,102 @@ dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---- bf16 backward: dK, dV (one block per key tile) -----------------------
+// ---- bf16 backward: dK, dV and dQ (one block per key tile) ---------------
+//
+// Five products a step, none formed twice: per (key tile, b*h) the block
+// streams 64 queries a step from the diagonal down and forms S^T =
+// K Q^T and dP^T = V dO^T (keys x queries, so their fragments are the A
+// operands that follow), then dV += P^T dO, dK += (dS scale)^T Q, and the
+// step's dQ partial, dS scale K.  That last product needs dS with the
+// queries as its rows: each consumer writes its rounded dS^T (the same
+// bf16 values as its dK fragments) to shared memory, and the product
+// reads it MN-major, as it reads K.  With two consumer warpgroups (128
+// keys) each forms half of dQ's columns over all 128 keys, after a named
+// barrier of the two; dS^T has two stages, so a warpgroup a step ahead
+// never writes over what the other's dQ product still reads.
+//
+// dQ is summed over the key tiles in f32: a warpgroup stages its partial
+// (64 queries x D/NWG f32, in TMA's swizzled boxes) in shared memory and
+// the producer warpgroup's second warp hands it to TMA's reduce-add into
+// the f32 scratch (cp.reduce.async.bulk.tensor ... add), which the delta
+// pass zeroed; the copy engine and the L2 do the adds, and a consumer
+// waits only before it writes its staging tile again.  The order of the
+// f32 sums across key tiles varies from run to run; dq_convert_kernel
+// rounds the sum to bf16 once.
+//
+// Overlap: dV is issued as soon as p is packed, so the tensor cores run it
+// while the consumer waits for dP^T and forms dS.
+//
+// What bounds it: shared memory as much as the tensor cores.  A step
+// reads each product's shared-memory operands (two warpgroups: about 256
+// KB) and writes dS^T and the dQ staging (48 KB), which TMA reads back;
+// at 128 bytes a clock that is close to the products' own time at the
+// bf16 peak.  Staging dQ alone cost 0.09 of 0.46 ms at the MFU shape
+// (PERF.md, PR 10).
+//
+// Tile height: two consumer warpgroups only at D = 128 (two_warpgroups'
+// rule); at D = 64 half of dQ's columns would be 32, half a swizzled box,
+// so D = 64 always takes one.  Registers: the consumers take 240 a thread
+// and leave the producer warpgroup 24 (hopper_tiles.cuh).
 
 template <int D, int NWG>
-struct DkdvTc {
+struct BwdTc {
   static constexpr int BN = 64 * NWG;      // keys a block
   static constexpr int QB = 64;            // queries a step
+  static constexpr int DQN = D / NWG;      // dQ columns a warpgroup
   static constexpr int KV_BYTES = BN * D * 2;
   static constexpr int QT_BYTES = QB * D * 2;
+  static constexpr int DS_BYTES = BN * QB * 2;    // dS^T, a stage
+  static constexpr int DQ_BYTES = QB * DQN * 4;   // a warpgroup's dQ
   static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * ST * QT_BYTES +
+                              2 * DS_BYTES + NWG * DQ_BYTES +
                               ST * 2 * QB * 4 + 8 * (1 + 2 * ST);
+  static_assert(SMEM <= 232448, "bf16 backward tiles exceed shared memory");
+  static_assert(DQN % 64 == 0, "dQ columns a warpgroup: whole boxes");
 };
+
+// named barriers of bwd_tc_kernel (0 is __syncthreads'): one warpgroup's
+// dS^T written (NWG = 1); warpgroup w's dS^T written at a step of parity
+// p (id DS_READY + 2p + w: w arrives, the other waits; two parities, so
+// an arrival never meets the last step's); warpgroup w's dQ staged (w
+// arrives, the writer waits); its staging free again (the writer
+// arrives, w waits)
+constexpr int DS_LOCAL = 1, DS_READY = 2, DQ_FULL = 6, DQ_EMPTY = 8;
 
 template <int D, int NWG>
 __global__ void __launch_bounds__(tc_threads(NWG), 1)
-dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap tdo,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int n,
-               Strides s, float scale) {
-  using L = DkdvTc<D, NWG>;
-  constexpr int BN = L::BN, QB = L::QB;
+bwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tdq,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int n,
+              int group, Strides s, float scale) {
+  using L = BwdTc<D, NWG>;
+  constexpr int BN = L::BN, QB = L::QB, DQN = L::DQN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
   uint8_t* Vs = Ks + L::KV_BYTES;
   uint8_t* Qs = Vs + L::KV_BYTES;              // ST stages
   uint8_t* dOs = Qs + ST * L::QT_BYTES;        // ST stages
-  float* rowv = reinterpret_cast<float*>(dOs + ST * L::QT_BYTES);
+  uint8_t* dSs = dOs + ST * L::QT_BYTES;       // 2 stages
+  uint8_t* dQs = dSs + 2 * L::DS_BYTES;        // one a warpgroup
+  float* rowv = reinterpret_cast<float*>(dQs + NWG * L::DQ_BYTES);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(rowv + ST * 2 * QB);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + ST;
 
-  const int kt = blockIdx.x;                   // low key tiles: most work
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  // Block order, which the scheduler follows: groups of `group` (b, h),
+  // and in a group the low key tiles, the most work, of every (b, h)
+  // first, so that short blocks fill the tail; a group's Q and dO stay in
+  // the L2 while it runs
+  const int n_kt = (n + BN - 1) / BN;
+  const int g0 = blockIdx.x / (group * n_kt) * group;    // its first (b, h)
+  const int gs = min(group, int(gridDim.x) / n_kt - g0);  // its size
+  const int r = blockIdx.x - g0 * n_kt;
+  const int kt = r / gs;
+  const int bh = g0 + r % gs, b = bh / H, h = bh % H;
   const int k0 = kt * BN;
   const int qt0 = k0 / QB;                     // first tile with q >= k0
   const int n_it = (n + QB - 1) / QB - qt0;
@@ -975,7 +1110,30 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (warp >= 4 * NWG) {                       // the producer warpgroup
-    producer_regs<NWG>();
+    producer_regs<NWG, 24>();
+    if (warp == 4 * NWG + 1) {                 // the dQ writer
+      for (int w = 0; w < NWG; ++w)            // staging starts free
+        hopper::named_arrive(DQ_EMPTY + w, 160);
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (qt0 + it) * QB;
+        for (int w = 0; w < NWG; ++w) {
+          hopper::named_sync(DQ_FULL + w, 160);   // warpgroup w staged
+          if (lane == 0) {
+#pragma unroll
+            for (int box = 0; box < DQN / 32; ++box)
+              hopper::tma_reduce_add_4d(
+                  dQs + w * L::DQ_BYTES + box * QB * 128, &tdq,
+                  w * DQN + box * 32, h, q0, b);
+            hopper::bulk_commit();
+            hopper::bulk_wait_read();
+          }
+          __syncwarp();
+          if (it + 1 < n_it) hopper::named_arrive(DQ_EMPTY + w, 160);
+        }
+      }
+      if (lane == 0) hopper::bulk_wait();
+      return;
+    }
     if (warp != 4 * NWG) return;
     if (lane == 0) {
       mbar_arrive_tx(kv_full, 2 * L::KV_BYTES);
@@ -1005,16 +1163,21 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  consumer_regs<NWG>();
+  consumer_regs<NWG, 240>();
   const int wg = warp / 4, qd = lane % 4;
   const int kr = 64 * wg + 16 * (warp % 4) + lane / 4;   // tile key, i = 0
+  const int r0 = 16 * (warp % 4) + lane / 4;             // dQ row, i = 0
   const float sl2 = scale * LOG2E;
+  uint8_t* const dQt = dQs + wg * L::DQ_BYTES;
+  // this warpgroup's dQ columns of K: whole 64-column boxes
+  const uint8_t* const Kq = Ks + wg * (DQN / 64) * BN * 128;
   float sacc[QB / 2], pacc[QB / 2];            // S^T and dP^T: keys x queries
-  float dvacc[D / 2], dkacc[D / 2];
+  float dvacc[D / 2], dkacc[D / 2], dqacc[DQN / 2];
   zero_regs(sacc);
   zero_regs(pacc);
   zero_regs(dvacc);
   zero_regs(dkacc);
+  zero_regs(dqacc);
   uint32_t pa[QB / 16][4], da[QB / 16][4];
 
   mbar_wait(kv_full, 0);
@@ -1022,6 +1185,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = it % ST, q0 = (qt0 + it) * QB;
     const uint8_t* Qt = Qs + st * L::QT_BYTES;
     const uint8_t* dOt = dOs + st * L::QT_BYTES;
+    uint8_t* dSt = dSs + (it & 1) * L::DS_BYTES;
     const float* lr = rowv + st * 2 * QB;
     const float* dr = lr + QB;
     mbar_wait(&full[st], (it / ST) & 1);
@@ -1062,7 +1226,15 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     pack_frags<QB>(pa, sacc);                    // p rounded to bf16
 
-    wgmma_wait<0>();                           // dP^T is in
+    // dV += P^T dO runs while dP^T lands and dS is formed
+    fence_frags(pa);
+    fence_regs(dvacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk)
+      wgmma_rs<D>(dvacc, pa[kk], smem_desc_mn(dOt, QB, kk));
+    wgmma_commit();
+    wgmma_wait<1>();                           // dP^T is in
     fence_regs(pacc);
 #pragma unroll
     for (int j = 0; j < QB / 8; ++j) {
@@ -1078,22 +1250,56 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     pack_frags<QB>(da, pacc);                    // ds*scale rounded to bf16
 
-    fence_frags(pa);
+    // dS^T to shared memory (one 64-query box of BN keys): fragment
+    // da[kk][x] is key kr + 8(x & 1), queries 16kk + 8(x >> 1) + 2qd, +1
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        *reinterpret_cast<uint32_t*>(
+            dSt + hopper::sw128(kr + 8 * (x & 1), 2 * kk + (x >> 1)) +
+            4 * qd) = da[kk][x];
+    hopper::fence_async_smem();
+    if constexpr (NWG == 1)
+      hopper::named_sync(DS_LOCAL, 128);       // every warp's dS^T is in
+    else
+      hopper::named_arrive(DS_READY + 2 * (it & 1) + wg, 256);   // ours
+
+    // dK += (dS scale)^T Q; dQ partial = (dS scale) K over the BN keys,
+    // once the other warpgroup's dS^T is in too
     fence_frags(da);
-    fence_regs(dvacc);
     fence_regs(dkacc);
+    fence_regs(dqacc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QB / 16; ++kk)
-      wgmma_rs<D>(dvacc, pa[kk], smem_desc_mn(dOt, QB, kk));
-#pragma unroll
-    for (int kk = 0; kk < QB / 16; ++kk)
       wgmma_rs<D>(dkacc, da[kk], smem_desc_mn(Qt, QB, kk));
+    if constexpr (NWG == 2)
+      hopper::named_sync(DS_READY + 2 * (it & 1) + 1 - wg, 256);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      hopper::wgmma_ss_mn<DQN>(dqacc, smem_desc_mn(dSt, BN, kk),
+                               smem_desc_mn(Kq, BN, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dvacc);
     fence_regs(dkacc);
+    fence_regs(dqacc);
     if (lane == 0) mbar_arrive(&empty[st]);
+
+    // stage the dQ partial (32-column f32 boxes, 128-byte swizzle) once
+    // the writer warp has handed the last one to TMA, and hand it over
+    hopper::named_sync(DQ_EMPTY + wg, 160);
+#pragma unroll
+    for (int j = 0; j < DQN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(
+            dQt + (j / 4) * QB * 128 +
+            hopper::sw128(r0 + 8 * i, 2 * (j % 4) + qd / 2) + 8 * (qd & 1)) =
+            make_float2(dqacc[4 * j + 2 * i], dqacc[4 * j + 2 * i + 1]);
+    hopper::fence_async_smem();
+    hopper::named_arrive(DQ_FULL + wg, 160);
   }
 
   const int64_t base = b * s.b + h * s.h;
@@ -1107,153 +1313,12 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---- bf16 backward: dQ (one block per query tile) --------------------------
-
-template <int D, int NWG>
-struct DqTc {
-  static constexpr int BM = 64 * NWG;      // queries a block
-  static constexpr int KB = 64;            // keys a step
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KT_BYTES = KB * D * 2;
-  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * ST * KT_BYTES +
-                              8 * (1 + 2 * ST);
-};
-
-template <int D, int NWG>
-__global__ void __launch_bounds__(tc_threads(NWG), 1)
-dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
-             const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv,
-             const __grid_constant__ CUtensorMap tdo,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dq, int H, int n, Strides s, float scale) {
-  using L = DqTc<D, NWG>;
-  constexpr int BM = L::BM, KB = L::KB;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);
-  uint8_t* dOs = Qs + L::Q_BYTES;
-  uint8_t* Ks = dOs + L::Q_BYTES;              // ST stages
-  uint8_t* Vs = Ks + ST * L::KT_BYTES;         // ST stages
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * L::KT_BYTES);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + ST;
-
-  const int nt = (n + BM - 1) / BM;
-  const int qt = nt - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BM;
-  const int n_kt = min(q0 + BM - 1, n - 1) / KB + 1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    hopper::mbar_init(q_full, 1);
-    for (int i = 0; i < ST; ++i) {
-      hopper::mbar_init(&full[i], 1);
-      hopper::mbar_init(&empty[i], 4 * NWG);
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * NWG) {                       // the producer warpgroup
-    producer_regs<NWG>();
-    if (warp == 4 * NWG && lane == 0) {
-      mbar_arrive_tx(q_full, 2 * L::Q_BYTES);
-      tma_load_tile<D>(Qs, &tq, q_full, BM, q0, h, b);
-      tma_load_tile<D>(dOs, &tdo, q_full, BM, q0, h, b);
-      for (int it = 0; it < n_kt; ++it) {
-        const int st = it % ST;
-        mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
-        mbar_arrive_tx(&full[st], 2 * L::KT_BYTES);
-        tma_load_tile<D>(Ks + st * L::KT_BYTES, &tk, &full[st], KB, it * KB,
-                         h, b);
-        tma_load_tile<D>(Vs + st * L::KT_BYTES, &tv, &full[st], KB, it * KB,
-                         h, b);
-      }
-    }
-    return;
-  }
-
-  consumer_regs<NWG>();
-  const int wg = warp / 4, qd = lane % 4;
-  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
-  const float sl2 = scale * LOG2E;
-  float lr[2], dr[2];                          // lse (log2 units), delta
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + 8 * i;
-    lr[i] = qi < n ? lse[int64_t(bh) * n + qi] * LOG2E : 0.f;
-    dr[i] = qi < n ? delta[int64_t(bh) * n + qi] : 0.f;
-  }
-  float sacc[KB / 2], pacc[KB / 2], dqacc[D / 2];
-  zero_regs(sacc);
-  zero_regs(pacc);
-  zero_regs(dqacc);
-  uint32_t da[KB / 16][4];
-
-  mbar_wait(q_full, 0);
-  for (int it = 0; it < n_kt; ++it) {
-    const int st = it % ST, k0 = it * KB;
-    const uint8_t* Kt = Ks + st * L::KT_BYTES;
-    const uint8_t* Vt = Vs + st * L::KT_BYTES;
-    mbar_wait(&full[st], (it / ST) & 1);
-
-    fence_regs(sacc);
-    fence_regs(pacc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<KB>(sacc, smem_desc_k(Qs, BM, 64 * wg, kk),
-                   smem_desc_k(Kt, KB, 0, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<KB>(pacc, smem_desc_k(dOs, BM, 64 * wg, kk),
-                   smem_desc_k(Vt, KB, 0, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sacc);
-    fence_regs(pacc);
-
-    const bool edge = k0 + KB - 1 > q0 + 64 * wg || k0 + KB > n;
-#pragma unroll
-    for (int j = 0; j < KB / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 4 * j + 2 * i + c;
-          float p = exp2f(fmaf(sacc[e], sl2, -lr[i]));
-          if (edge) {
-            const int kc = k0 + 8 * j + 2 * qd + c, qi = q0 + r0 + 8 * i;
-            if (kc > qi || kc >= n) p = 0.f;
-          }
-          const float ds = (pacc[e] - dr[i]) * p;
-          pacc[e] = ds * scale;
-        }
-    pack_frags<KB>(da, pacc);                    // ds*scale rounded to bf16
-
-    fence_frags(da);
-    fence_regs(dqacc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KB / 16; ++kk)
-      wgmma_rs<D>(dqacc, da[kk], smem_desc_mn(Kt, KB, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dqacc);
-    if (lane == 0) mbar_arrive(&empty[st]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + 8 * i;
-    if (qi < n)
-      store_frag_row<D>(dq + b * s.b + h * s.h + int64_t(qi) * s.t, dqacc, i,
-                        qd, 1.f);
-  }
-}
-
 // ---- launches --------------------------------------------------------------
+//
+// At the LM's shape a call costs more on the host than on the card; of
+// the library's share, encoding a tensor map and setting the shared-memory
+// attribute cost about 0.1 us each (geo_flash_host_pieces), so both are
+// done on every launch.
 
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
@@ -1315,37 +1380,29 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
 template <int D, int NWG>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
-                          const float* delta, void* dq, void* dk, void* dv,
-                          int B, int H, int n, Strides s, float scale,
-                          cudaStream_t stream) {
-  using LK = DkdvTc<D, NWG>;
-  using LQ = DqTc<D, NWG>;
-  // dK/dV: key tiles of LK::BN, query steps of LK::QB;
-  // dQ: query tiles of LQ::BM, key steps of LQ::KB
-  CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
-  if (!bthd_map(&kq, q, B, H, n, D, s, LK::QB) ||
-      !bthd_map(&kk, k, B, H, n, D, s, LK::BN) ||
-      !bthd_map(&kv, v, B, H, n, D, s, LK::BN) ||
-      !bthd_map(&kdo, dout, B, H, n, D, s, LK::QB) ||
-      !bthd_map(&qq, q, B, H, n, D, s, LQ::BM) ||
-      !bthd_map(&qk, k, B, H, n, D, s, LQ::KB) ||
-      !bthd_map(&qv, v, B, H, n, D, s, LQ::KB) ||
-      !bthd_map(&qdo, dout, B, H, n, D, s, LQ::BM))
+                          const float* delta, float* dq_acc, void* dk,
+                          void* dv, int B, int H, int n, Strides s,
+                          float scale, cudaStream_t stream) {
+  using L = BwdTc<D, NWG>;
+  // key tiles of L::BN, query steps of L::QB; dQ's f32 boxes of 64 rows
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!bthd_map(&tq, q, B, H, n, D, s, L::QB) ||
+      !bthd_map(&tk, k, B, H, n, D, s, L::BN) ||
+      !bthd_map(&tv, v, B, H, n, D, s, L::BN) ||
+      !bthd_map(&tdo, dout, B, H, n, D, s, L::QB) ||
+      !bthd_map(&tdq, dq_acc, B, H, n, D, s, L::QB, 4))
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(dkdv_tc_kernel<D, NWG>, LK::SMEM);
+  cudaError_t err = set_smem(bwd_tc_kernel<D, NWG>, L::SMEM);
   if (err != cudaSuccess) return err;
-  dkdv_tc_kernel<D, NWG>
-      <<<dim3((n + LK::BN - 1) / LK::BN, B * H), tc_threads(NWG), LK::SMEM,
-         stream>>>(kq, kk, kv, kdo, lse, delta, static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), H, n, s, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = set_smem(dq_tc_kernel<D, NWG>, LQ::SMEM);
-  if (err != cudaSuccess) return err;
-  dq_tc_kernel<D, NWG>
-      <<<dim3((n + LQ::BM - 1) / LQ::BM, B * H), tc_threads(NWG), LQ::SMEM,
-         stream>>>(qq, qk, qv, qdo, lse, delta, static_cast<bf16*>(dq), H, n,
-                   s, scale);
+  // (b, h) a group: their Q and dO in 32 MB of the 50 MB L2
+  const int64_t per_bh = int64_t(n) * D * 4;
+  const int group = int(std::max<int64_t>(
+      1, std::min<int64_t>(B * H, (int64_t(32) << 20) / per_bh)));
+  const int64_t n_kt = (n + L::BN - 1) / L::BN;
+  bwd_tc_kernel<D, NWG>
+      <<<unsigned(B * H * n_kt), tc_threads(NWG), L::SMEM, stream>>>(
+          tq, tk, tv, tdo, tdq, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), H, n, group, s, scale);
   return cudaGetLastError();
 }
 
@@ -1358,7 +1415,7 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
   using PK = BwdF32Pipe<D, 2>;
   using PQ = BwdF32Pipe<D, 1>;
   cudaError_t err =
-      launch_delta<float, D>(o, dout, delta, B, H, n, s, stream);
+      launch_delta<float, D>(o, dout, delta, nullptr, B, H, n, s, stream);
   if (err != cudaSuccess) return err;
   // dK/dV: K, V resident (64 rows), Q, dO streamed (STEP rows);
   // dQ: Q, dO resident, K, V streamed
@@ -1389,34 +1446,49 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// delta pass (which zeroes dq_acc), the fused kernel, dQ rounded to bf16
 template <int D>
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
-                            const float* lse, float* delta, void* dq,
-                            void* dk, void* dv, int B, int H, int n,
-                            Strides s, float scale, cudaStream_t stream) {
-  const cudaError_t err =
-      launch_delta<bf16, D>(o, dout, delta, B, H, n, s, stream);
+                            const float* lse, float* delta, float* dq_acc,
+                            void* dq, void* dk, void* dv, int B, int H,
+                            int n, Strides s, float scale,
+                            cudaStream_t stream) {
+  cudaError_t err =
+      launch_delta<bf16, D>(o, dout, delta, dq_acc, B, H, n, s, stream);
   if (err != cudaSuccess) return err;
-  if (two_warpgroups(B, H, n))
-    return launch_bwd_tc<D, 2>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
-                               n, s, scale, stream);
-  return launch_bwd_tc<D, 1>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, n,
-                             s, scale, stream);
+  if constexpr (D == 128) {
+    if (two_warpgroups(B, H, n))
+      err = launch_bwd_tc<D, 2>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B,
+                                H, n, s, scale, stream);
+    else
+      err = launch_bwd_tc<D, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B,
+                                H, n, s, scale, stream);
+  } else {
+    err = launch_bwd_tc<D, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H,
+                              n, s, scale, stream);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t n8 = int64_t(B) * n * H * D / 8;
+  dq_convert_kernel<<<grid_for(n8), NT, 0, stream>>>(
+      reinterpret_cast<const float4*>(dq_acc), static_cast<uint4*>(dq), n8);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  Strides in
-// elements, shared by every [B, T, H, D] tensor of the call (bf16: the
-// TMA maps need 16-byte aligned bases).  Returns a cudaError_t (0 =
-// launched).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  Every [B, T,
+// H, D] tensor of the call is contiguous (the TMA maps need 16-byte
+// aligned bases).  Returns a cudaError_t (0 = launched).
+Strides contiguous(int H, int n, int D) {
+  return Strides{int64_t(n) * H * D, int64_t(H) * D, D};
+}
+
 extern "C" int geo_flash_fwd(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, void* o,
-                             float* lse, int B, int H, int n, long long sb,
-                             long long st, long long sh, float scale,
+                             float* lse, int B, int H, int n, float scale,
                              void* stream) {
-  const Strides s{int64_t(sb), int64_t(st), int64_t(sh)};
+  const Strides s = contiguous(H, n, head_dim);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch_fwd_f32<64>(q, k, v, o, lse, B, H, n, s, scale, cs);
@@ -1429,14 +1501,16 @@ extern "C" int geo_flash_fwd(int dtype, int head_dim, const void* q,
   return int(cudaErrorInvalidValue);
 }
 
-// delta is f32 [B, H, T] scratch the caller allocates.
+// delta is f32 [B, H, T] scratch the caller allocates; dq_acc f32 scratch
+// of q's shape and strides (bf16 only: the delta pass zeroes it and the
+// key tiles add their dQ into it; null in f32).
 extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* o,
                              const void* dout, const float* lse,
-                             float* delta, void* dq, void* dk, void* dv,
-                             int B, int H, int n, long long sb, long long st,
-                             long long sh, float scale, void* stream) {
-  const Strides s{int64_t(sb), int64_t(st), int64_t(sh)};
+                             float* delta, float* dq_acc, void* dq, void* dk,
+                             void* dv, int B, int H, int n, float scale,
+                             void* stream) {
+  const Strides s = contiguous(H, n, head_dim);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch_bwd_f32<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
@@ -1444,12 +1518,51 @@ extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
   if (dtype == 0 && head_dim == 128)
     return launch_bwd_f32<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                H, n, s, scale, cs);
+  if (dq_acc == nullptr) return int(cudaErrorInvalidValue);
   if (dtype == 1 && head_dim == 64)
-    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               H, n, s, scale, cs);
+    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk,
+                               dv, B, H, n, s, scale, cs);
   if (dtype == 1 && head_dim == 128)
-    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                H, n, s, scale, cs);
+    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk,
+                                dv, B, H, n, s, scale, cs);
   return int(cudaErrorInvalidValue);
 }
 
+// Host time (us, mean over `reps`, host clock) of the library's pieces of
+// a launch, for a forward call's q in the given dtype and head_dim (f32
+// box rows 32, bf16 64): [0] one tensor map encoded, [1]
+// cudaFuncSetAttribute, [2] cudaGetDevice, [3] cudaGetLastError.
+extern "C" int geo_flash_host_pieces(int dtype, int head_dim, const void* q,
+                                     int B, int H, int n, int reps,
+                                     double* us) {
+  using clock = std::chrono::steady_clock;
+  const Strides s = contiguous(H, n, head_dim);
+  const int es = dtype == 0 ? 4 : 2, rows = dtype == 0 ? 32 : 64;
+  if (reps < 1 || (head_dim != 64 && head_dim != 128))
+    return int(cudaErrorInvalidValue);
+  auto mean_us = [reps](clock::time_point t0) {
+    return std::chrono::duration<double, std::micro>(clock::now() - t0)
+               .count() / reps;
+  };
+  CUtensorMap m;
+  bool ok = true;
+  auto t0 = clock::now();
+  for (int i = 0; i < reps; ++i)
+    ok &= bthd_map(&m, q, B, H, n, head_dim, s, rows, es);
+  us[0] = mean_us(t0);
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  t0 = clock::now();
+  for (int i = 0; i < reps; ++i)
+    err = set_smem(fwd_f32_tc_kernel<64>, hopper::Tf32Tiles<64>::SMEM);
+  us[1] = mean_us(t0);
+  if (err != cudaSuccess) return int(err);
+  int dev = 0;
+  t0 = clock::now();
+  for (int i = 0; i < reps; ++i) err = cudaGetDevice(&dev);
+  us[2] = mean_us(t0);
+  t0 = clock::now();
+  for (int i = 0; i < reps; ++i) err = cudaGetLastError();
+  us[3] = mean_us(t0);
+  return int(err);
+}

@@ -176,6 +176,43 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// One box of shared memory added element by element (f32 add, in the
+// L2) into a 4-D map's box: the reverse of tma_load_4d, without a
+// barrier; completion is tracked by bulk groups (bulk_commit, then
+// bulk_wait_read before the box is written again, bulk_wait before the
+// block exits).  Rows past the map's extent are dropped.
+__device__ __forceinline__ void tma_reduce_add_4d(const void* src,
+                                                  const CUtensorMap* map,
+                                                  int c0, int c1, int c2,
+                                                  int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the committed bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the committed bulk groups have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (whole warps) on named barrier `id` (1-15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Hand registers between warpgroups: every warp of a warpgroup runs the
 // same one, on paths that never join again.
 template <int R>
@@ -320,6 +357,36 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= A B: A and B both MN-major in shared memory (both transpose bits
+// set: A's rows, B's columns run along the tile's rows), bf16 in, f32
+// out; accumulate when `acc`, else overwrite.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GEO_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : GEO_F8(0), GEO_F8(8), GEO_F8(16), GEO_F8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " GEO_D64
+      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : GEO_F8(0), GEO_F8(8), GEO_F8(16), GEO_F8(24), GEO_F8(32), GEO_F8(40),
+        GEO_F8(48), GEO_F8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // The TF32 forms (k8, 32 bytes of depth a step): operands hold TF32
 // values in 32-bit words, both K-major (TF32 has no transpose flags).
 
@@ -427,13 +494,23 @@ __host__ __device__ constexpr int tc_threads(int nwg) {
   return (nwg + 1) * WG;
 }
 
-template <int NWG>
+// A kernel whose producer warpgroup does little may give more, so that
+// its consumers take 240: the consumers can only take what the producer
+// gives back of the block's 168 a thread, (240 - 168) * 256 = (168 - 24)
+// * 128, so the producer keeps 24 (with 32, setmaxnreg.inc waits
+// forever).
+template <int NWG, int P = 40>
 __device__ __forceinline__ void producer_regs() {
-  if constexpr (NWG == 2) setmaxnreg_dec<40>();
+  if constexpr (NWG == 2) setmaxnreg_dec<P>();
 }
-template <int NWG>
+template <int NWG, int C = 232>
 __device__ __forceinline__ void consumer_regs() {
-  if constexpr (NWG == 2) setmaxnreg_inc<232>();
+  if constexpr (NWG == 2) setmaxnreg_inc<C>();
+}
+
+// arrive at named barrier `id` (of `threads` threads) without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // the first 1024-byte boundary at or after p (every box starts on one)
@@ -798,7 +875,10 @@ inline int sm_count() {
 }
 
 // Two consumer warpgroups (128-row tiles) when the grid of 128-row tiles
-// covers every SM once; else one (64-row tiles, twice the blocks).
+// covers every SM once; else one (64-row tiles, twice the blocks).  The
+// bf16 flash backward (bwd_tc_kernel) takes the rule at D = 128 only: its
+// two warpgroups split dQ's columns, half a swizzled box at D = 64, so at
+// D = 64 it always takes one.
 inline bool two_warpgroups(int B, int H, int n) {
   return int64_t((n + 127) / 128) * B * H >= sm_count();
 }

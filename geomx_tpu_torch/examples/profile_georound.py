@@ -2,9 +2,9 @@
 
 Runs the workload's ``train`` (:mod:`geomx_tpu_torch.examples.cnn`, or
 :mod:`geomx_tpu_torch.examples.lm` at the flagship LM's full width with
-flash attention in bf16) once to build the kernels and warm the
-libraries, then at a short and a long step count,
-each twice: once plain (wall time from ``train``'s own ``seconds``) and
+flash attention, in bf16 or, with ``--compute-dtype float32``, in
+f32) once to build the kernels and warm the libraries, then at a short
+and a long step count, each twice: once plain (wall time from ``train``'s own ``seconds``) and
 once under ``torch.profiler`` (device time by kernel).  Every figure is
 the long run minus the short one, divided by the difference in steps,
 so set-up, the first barrier and shutdown cancel and what is left is a
@@ -23,7 +23,8 @@ wall time is an error, not a zero).
         --steps 13 --short-steps 3
 
 Writes the report to
-``chiprun_out/profile_<workload>_<compression>.json``
+``chiprun_out/profile_<workload>_<compression>.json`` (the LM's with
+``_<compute dtype>`` appended)
 (under the current directory) and prints a summary.  Needs a CUDA card.
 """
 
@@ -40,13 +41,12 @@ CODEC_KERNELS = ("quant_consecutive", "quant_strided")   # also dequant_*
 DGC_KERNELS = ("dgc_update<",)
 FLASH_KERNELS = ("fwd_f32_tc_kernel<", "delta_kernel<",
                  "dkdv_f32_tc_kernel<", "dq_f32_tc_kernel<", "fwd_tc_kernel<",
-                 "dkdv_tc_kernel<", "dq_tc_kernel<")
+                 "bwd_tc_kernel<", "dq_convert_kernel")
 # the flagship LM (training.build_flagship_lm's widths), as chip_smoke.py
 # drives it
 LM_FLAGS = ["--vocab", "8192", "--d-model", "384", "--layers", "4",
             "--heads", "6", "--d-ff", "1536", "--seq", "128",
-            "--attn-impl", "flash", "--compute-dtype", "bfloat16",
-            "--lr", "3e-3"]
+            "--attn-impl", "flash", "--lr", "3e-3"]
 
 
 def _group(name: str) -> str:
@@ -88,7 +88,8 @@ def _example(a):
 
 
 def _train_args(a, steps: int):
-    flags = (["--workers", "2", *LM_FLAGS] if a.workload == "lm"
+    flags = (["--workers", "2", *LM_FLAGS, "--compute-dtype",
+              a.compute_dtype] if a.workload == "lm"
              else ["--lr", "0.001"])
     return _example(a).build_parser().parse_args(
         ["--compression", a.compression, "--steps", str(steps),
@@ -127,6 +128,9 @@ def main(argv=None) -> int:
                     help="steps of the long run")
     ap.add_argument("--short-steps", type=int, default=5,
                     help="steps of the short run subtracted from it")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="the LM's compute dtype (its flash kernels')")
     ap.add_argument("--batch", type=int, default=None,
                     help="per worker (default: 32 for the CNN, 8 for "
                          "the LM)")
@@ -163,6 +167,7 @@ def main(argv=None) -> int:
     report = {
         "nvidia_smi": smi, "workload": a.workload,
         "compression": a.compression,
+        "compute_dtype": a.compute_dtype if a.workload == "lm" else None,
         "steps": a.steps, "short_steps": a.short_steps, "batch": a.batch,
         "wall_s": {"short": wall_s, "long": wall_l},
         "wall_ms_per_step": wall * 1e3,
@@ -176,12 +181,14 @@ def main(argv=None) -> int:
         "wan_bytes_per_step": (wan_l - wan_s) / d,
     }
     os.makedirs("chiprun_out", exist_ok=True)
+    tag = (f"_{a.compute_dtype}" if a.workload == "lm" else "")
     path = os.path.join("chiprun_out",
-                        f"profile_{a.workload}_{a.compression}.json")
+                        f"profile_{a.workload}_{a.compression}{tag}.json")
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
-        "nvidia_smi", "workload", "compression", "wall_ms_per_step",
+        "nvidia_smi", "workload", "compression", "compute_dtype",
+        "wall_ms_per_step",
         "device_ms_per_step", "device_idle_share", "groups_ms_per_step",
         "wan_bytes_per_step")}))
     return 0

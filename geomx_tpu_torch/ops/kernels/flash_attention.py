@@ -16,13 +16,19 @@ Two launchers, each counting its launches in :data:`LAUNCHES` (the f32
 kernels under the name with ``_f32``):
 
 - :func:`flash_fwd` runs the forward kernel: ``(o, lse)``;
-- :func:`flash_bwd` runs the three backward kernels (delta, dK/dV, dQ)
-  in one call: ``(dq, dk, dv)``.
+- :func:`flash_bwd` runs the backward in one call: ``(dq, dk, dv)``.
+  In bf16 that is the delta pass (which also zeroes an f32 dQ scratch),
+  one kernel that forms dK, dV and each key tile's dQ and adds the dQ
+  into the scratch, and the pass that rounds dQ to bf16; in f32 the
+  delta pass, the dK/dV kernel and the dQ kernel.
 
-Each wrapper checks device, dtype, shape, contiguity and 16-byte
-alignment (every kernel but ``delta`` reads through TMA), allocates
-every output with ``torch.empty``, launches on the current stream and
-raises if the launch reports a CUDA error.
+The launch path is short, because at the LM's shape a call costs more on
+the host than on the card (``examples/time_flash_launch.py``): one pass
+of checks (device, dtype, shape, contiguity and the 16-byte alignment
+TMA needs), ``torch.empty`` for the outputs (and one f32 scratch in the
+backward), the current stream's raw handle, one ``ctypes`` call, and a ``RuntimeError`` if the launch
+reports a CUDA error.  No lock is held across the launch; only the
+launch counters are guarded.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -40,6 +46,7 @@ PKG = Path(__file__).resolve().parents[2]
 KERNEL_CACHE = PKG / ".kernel_cache"
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_F32 = torch.float32
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0,
                             "flash_bwd": 0, "flash_bwd_f32": 0}
@@ -58,14 +65,15 @@ def launches() -> Dict[str, int]:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
-    lib.geo_flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, ll, ll, ll,
-                                  f, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.geo_flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, f, p]
     lib.geo_flash_fwd.restype = i
-    lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i,
-                                  i, ll, ll, ll, f, p]
+    lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i,
+                                  i, i, f, p]
     lib.geo_flash_bwd.restype = i
+    lib.geo_flash_host_pieces.argtypes = [i, i, p, i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_double)]
+    lib.geo_flash_host_pieces.restype = i
 
 
 # built with nvcc at the first launch; LIB.log keeps what ptxas said
@@ -79,50 +87,60 @@ def library() -> ctypes.CDLL:
     return LIB.load()
 
 
-def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} is {t.dtype}, expected {like.dtype}")
-    if t.shape != like.shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(like.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous [B, T, H, Dh]")
-
-
-def _check_q(q: torch.Tensor) -> Tuple[int, int, int, int]:
+def _check(q: torch.Tensor, named: Tuple[Tuple[str, torch.Tensor], ...]
+           ) -> Tuple[Tuple[int, int, int, int], List[int]]:
+    """``(B, T, H, Dh)`` of ``q`` and the addresses of q and the named
+    tensors, after one pass over them: q's rank, dtype, head dim and
+    grid; then each tensor's device, dtype, shape, contiguity and (TMA's)
+    16-byte alignment."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, Dh] (got {tuple(q.shape)})")
-    if q.dtype not in DTYPES:
+    dtype = q.dtype
+    if dtype not in DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16 "
-                        f"(got {q.dtype})")
-    B, T, H, D = q.shape
+                        f"(got {dtype})")
+    shape = q.shape
+    B, T, H, D = shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not supported {HEAD_DIMS}")
     if B * H >= 65536:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
-    _check("q", q, q)
-    return B, T, H, D
-
-
-def _check_aligned(*ts: torch.Tensor) -> None:
-    """TMA's tensor maps need 16-byte aligned bases."""
-    for t in ts:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{t.dtype} flash attention reads through TMA "
+    if not q.is_cuda:
+        raise ValueError(f"q must be a CUDA tensor (got {q.device})")
+    dev = q.device
+    ptrs = []
+    for name, t in (("q", q),) + named:
+        if t is not q and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}"
+                             if t.is_cuda else f"{name} must be a CUDA "
+                             f"tensor (got {t.device})")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous [B, T, H, Dh]")
+        ptr = t.data_ptr()
+        if ptr % 16:
+            raise ValueError(f"{dtype} flash attention reads through TMA "
                              f"and needs 16-byte aligned tensors (got "
-                             f"address {t.data_ptr():#x})")
+                             f"address {ptr:#x})")
+        ptrs.append(ptr)
+    return (B, T, H, D), ptrs
 
 
-def _name(what: str, q: torch.Tensor) -> str:
-    return what if q.dtype == torch.bfloat16 else what + "_f32"
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _check_lse(lse: torch.Tensor, q: torch.Tensor, B: int, H: int,
+               T: int) -> None:
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, expected {q.device}")
+    if lse.dtype != _F32:
+        raise TypeError(f"lse is {lse.dtype}, expected torch.float32")
+    if lse.shape != (B, H, T):
+        raise ValueError(f"lse has shape {tuple(lse.shape)}, expected "
+                         f"{(B, H, T)}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous [B, H, T]")
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -130,27 +148,32 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
+def _count(name: str) -> None:
+    with _mu:
+        LAUNCHES[name] += 1
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream's handle (``torch.cuda.current_stream`` builds
+    a ``Stream`` object each call)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal attention forward on the card: ``o`` [B, T, H, Dh] in q's
     dtype and ``lse`` f32 [B, H, T] (log-sum-exp of the scaled scores)."""
-    B, T, H, D = _check_q(q)
-    _check("k", k, q)
-    _check("v", v, q)
-    _check_aligned(q, k, v)
+    (B, T, H, D), (pq, pk, pv) = _check(q, (("k", k), ("v", v)))
     o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    if q.numel() == 0:
+    lse = torch.empty(B, H, T, dtype=_F32, device=q.device)
+    if B * T * H == 0:
         return o, lse
-    lib = library()
-    sb, st, sh, _ = q.stride()
-    with _mu:
-        rc = lib.geo_flash_fwd(DTYPES[q.dtype], D, q.data_ptr(),
-                               k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse.data_ptr(), B, H, T, sb, st, sh,
-                               float(sm_scale), _stream(q))
-        _raise_on(rc, "flash forward")
-        LAUNCHES[_name("flash_fwd", q)] += 1
+    f32 = q.dtype is _F32
+    rc = library().geo_flash_fwd(
+        0 if f32 else 1, D, pq, pk, pv, o.data_ptr(), lse.data_ptr(), B, H,
+        T, sm_scale, _raw_stream(q.get_device()))
+    _raise_on(rc, "flash forward")
+    _count("flash_fwd_f32" if f32 else "flash_fwd")
     return o, lse
 
 
@@ -159,26 +182,25 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               sm_scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal attention backward on the card: ``(dq, dk, dv)`` in q's
-    dtype, from the forward's ``o`` and ``lse`` and the output grad."""
-    B, T, H, D = _check_q(q)
-    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
-        _check(name, t, q)
-    want = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _check("lse", lse, want)
-    _check_aligned(q, k, v, o, do)
+    dtype, from the forward's ``o`` and ``lse`` and the output grad.  In
+    bf16 dQ is summed over the key tiles in an f32 scratch (zeroed by the
+    delta pass) and rounded once by a last pass."""
+    (B, T, H, D), ptrs = _check(q, (("k", k), ("v", v), ("o", o),
+                                    ("do", do)))
+    _check_lse(lse, q, B, H, T)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if q.numel() == 0:
+    if B * T * H == 0:
         return dq, dk, dv
-    delta = torch.empty_like(want)
-    lib = library()
-    sb, st, sh, _ = q.stride()
-    with _mu:
-        rc = lib.geo_flash_bwd(DTYPES[q.dtype], D, q.data_ptr(),
-                               k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), B, H, T,
-                               sb, st, sh, float(sm_scale), _stream(q))
-        _raise_on(rc, "flash backward")
-        LAUNCHES[_name("flash_bwd", q)] += 1
+    # one f32 scratch: dQ's sum (bf16 only; 16-byte aligned at its start),
+    # then delta [B, H, T]
+    f32 = q.dtype is _F32
+    n_acc = 0 if f32 else B * T * H * D
+    scratch = torch.empty(n_acc + B * H * T, dtype=_F32, device=q.device)
+    base = scratch.data_ptr()
+    rc = library().geo_flash_bwd(
+        0 if f32 else 1, D, *ptrs, lse.data_ptr(), base + 4 * n_acc,
+        None if f32 else base, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, T, sm_scale, _raw_stream(q.get_device()))
+    _raise_on(rc, "flash backward")
+    _count("flash_bwd_f32" if f32 else "flash_bwd")
     return dq, dk, dv
