@@ -54,7 +54,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    f32 forward and
    the f32 backward at the MFU shape must each take less event time than
    its plain version and than the FMA kernels they replaced, as last
-   measured (``FMA_LAST_MS``);
+   measured (``FMA_LAST_MS``); then the bf16 backward's fixed-order path
+   (its dQ partials added in ascending key tiles, taken while
+   ``torch.use_deterministic_algorithms(True)``, restored after) at the
+   LM's and the MFU shape: 3 runs whose dq, dk and dv are bitwise equal
+   (tolerance: none), each within the bf16 gates above against the plain
+   backward, its event time in turns with the default path and SDPA and
+   its device time by kernel, and whether the default path's dQ differed
+   across its own 3 runs (printed, not a gate);
 3b. block attention — the CUDA kernel of a ring hop's partial block
    (``geomx_tpu_torch/csrc/block_attention.cu``; bf16 and f32, 3xTF32,
    on the tensor cores) against its plain version in bf16 and f32, for
@@ -121,7 +128,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    it, and each path must launch its own kernels (2bit: quantize and
    dequantize; bsc: the DGC update, exactly 2 parties × 10 keys a step;
    LM: flash forward and backward, quantize and dequantize, in bf16 and
-   in f32).
+   in f32); then GeoMX's own sync modes through the CNN example's flags
+   (2 × 2 + 1, full width, the workers' local Adam): ``--hfa --hfa-k1 2
+   --hfa-k2 2`` for 8 steps and ``--esync`` for 4 rounds, each with
+   finite losses and final weights on the card, every server on the
+   torch backend on ``cuda``, the global server's device optimizer time
+   above 0 (the milestone delta added on the card), and the workers of
+   each party holding bitwise-equal weights at the end; all four after
+   the HFA run's last sync, a WAN round.  HFA pushes weights
+   uncompressed, so these runs launch no kernel of the table, and the
+   ``codec_host_bytes == 0`` gate is the FSA runs' only (under HFA the
+   round is put together on the host).
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -225,6 +242,12 @@ FMA_LAST_MS = {"flash_fwd": 7.0180, "flash_bwd": 22.0077,
 # bf16 ones (1e-3, 5e-2), and PERF.md records what the step reaches
 F32_STEP_LOSS_TOL = 1e-4
 F32_STEP_GRAD_TOL = 1e-3
+# phase 3, the bf16 backward's fixed-order path: runs a shape
+FLASH_ORDERED_RUNS = 3
+# phase 6, GeoMX's sync modes through the CNN example's flags: steps
+# (HFA) or sync rounds (ESync)
+HFA_ARGS = ["--hfa", "--hfa-k1", "2", "--hfa-k2", "2", "--steps", "8"]
+ESYNC_ARGS = ["--esync", "--steps", "4"]
 SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
 SP_ADAM_STEPS = 3
 
@@ -388,14 +411,19 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns_all(fns: dict, iters: int) -> dict:
+    """Event times (ms) of several versions of one function, run in
+    order and then in reverse order (first, second, second, first for
+    two): the mean of each one's two runs."""
+    first = {n: _time_ms(f, iters) for n, f in fns.items()}
+    second = {n: _time_ms(fns[n], iters) for n in reversed(list(fns))}
+    return {n: (first[n] + second[n]) / 2 for n in fns}
+
+
 def _in_turns(first, second, iters: int) -> tuple:
-    """Event times (ms) of two versions of one function, run first,
-    second, second, first: the mean of each version's two runs."""
-    a1 = _time_ms(first, iters)
-    b1 = _time_ms(second, iters)
-    b2 = _time_ms(second, iters)
-    a2 = _time_ms(first, iters)
-    return (a1 + a2) / 2, (b1 + b2) / 2
+    """:func:`_in_turns_all` of two versions: ``(first's, second's)``."""
+    t = _in_turns_all({0: first, 1: second}, iters)
+    return t[0], t[1]
 
 
 def kernel_costs(n: int) -> dict:
@@ -767,6 +795,98 @@ def check_flash(dev) -> dict:
             out["by_shape"][f"{shape} {dt}"] = rec
             del q, k, v, do, o, lse, ro, rlse, grads, refs, sq, sk, sv, so
             torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_ordered(dev) -> dict:
+    """The bf16 backward's fixed-order path against its plain version
+    and against itself, at the LM's and the MFU shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from geomx_tpu_torch.ops import flash_attention as FA
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+
+    was = torch.are_deterministic_algorithms_enabled()
+
+    def ordered_bwd(*args):
+        torch.use_deterministic_algorithms(True)
+        try:
+            return FK.flash_bwd(*args)
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    out = {}
+    for shape in (FLASH_MAIN[0], FLASH_MFU[0]):
+        rng = np.random.default_rng(sum(shape))
+        q, k, v, do = (torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+            .to(dev, torch.bfloat16) for _ in range(4))
+        scale = 1.0 / math.sqrt(shape[-1])
+        o, lse = FK.flash_fwd(q, k, v, scale)
+        args = (q, k, v, o, lse, do, scale)
+        refs = FA.flash_attention_bwd_ref(*args)
+        n0 = FK.launches()["flash_bwd_ordered"]
+        fixed = [ordered_bwd(*args) for _ in range(FLASH_ORDERED_RUNS)]
+        default = [FK.flash_bwd(*args) for _ in range(FLASH_ORDERED_RUNS)]
+        torch.cuda.synchronize()
+        assert FK.launches()["flash_bwd_ordered"] - n0 == \
+            FLASH_ORDERED_RUNS, "the fixed-order path was not taken"
+        for run in fixed[1:]:
+            for g, g0, name in zip(run, fixed[0], ("dq", "dk", "dv")):
+                assert torch.equal(bits(g), bits(g0)), \
+                    f"fixed-order bf16 backward {shape}: {name} moved"
+        default_dq_same = all(torch.equal(bits(r[0]), bits(default[0][0]))
+                              for r in default[1:])
+        err = max(_max_abs(g, r) for g, r in zip(fixed[0], refs))
+        tol = FLASH_TOL["bfloat16"] * max(
+            1.0, max(float(r.float().abs().max()) for r in refs))
+        assert err <= tol, f"fixed-order {shape}: max abs err {err} > {tol}"
+        rel = {n: _rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"),
+                                                    fixed[0], refs)}
+        assert max(rel.values()) <= FLASH_REL_L2["bfloat16"], \
+            f"fixed-order {shape}: relative L2 {rel}"
+        if shape[-1] == 128:
+            unr = _flash_bwd_unrounded(*args)
+            for n, g, u in zip(("dq", "dk", "dv"), fixed[0], unr):
+                assert rel[n] < _rel_l2(g, u), \
+                    f"fixed-order {shape} {n}: not nearer the rounding " \
+                    "plain backward"
+            del unr
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        sdo = do.transpose(1, 2).contiguous()
+        times = _in_turns_all({
+            "ordered": lambda: ordered_bwd(*args),
+            "default": lambda: FK.flash_bwd(*args),
+            "sdpa": lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                                retain_graph=True)}, 50)
+        device = {name: {n: t / 10 for n, t in _device_ms_by_kernel(
+            lambda: [fn(*args) for _ in range(10)]).items()}
+            for name, fn in (("ordered", ordered_bwd),
+                             ("default", FK.flash_bwd))}
+        out[str(shape)] = {
+            "default_dq_bitwise_equal": default_dq_same,
+            "max_abs_err": err, "tol": tol, "rel_l2": rel,
+            "ms": times["ordered"], "default_ms": times["default"],
+            "sdpa_ms": times["sdpa"], "device_ms_by_kernel": device}
+        log(f"flash_bwd fixed order {shape} bf16: {FLASH_ORDERED_RUNS} runs "
+            f"bitwise equal; max abs err {err:.3g} (tol {tol:.3g}), rel L2 "
+            + "/".join(f"{rel[n]:.3g}" for n in rel)
+            + f"; {times['ordered']:.4f} ms against the default path's "
+            f"{times['default']:.4f} and SDPA's {times['sdpa']:.4f} "
+            f"(in turns); default-path dQ bitwise equal across "
+            f"{FLASH_ORDERED_RUNS} runs: {default_dq_same}")
+        for name, by in device.items():
+            log(f"flash_bwd {name} {shape} bf16: device ms by kernel "
+                + "; ".join(f"{n[:40]} {t:.4f}" for n, t in by.items()))
+        del q, k, v, do, o, lse, refs, fixed, default, sq, sk, sv, so, sdo
+        torch.cuda.empty_cache()
+    assert torch.are_deterministic_algorithms_enabled() == was
     return out
 
 
@@ -1359,6 +1479,71 @@ def run_georound(compression: str) -> dict:
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
 
 
+def run_sync_mode(extra: list) -> dict:
+    """The CNN example under HFA or ESync (``extra``: its flags), 2 × 2
+    + 1, full width, the workers' local Adam, on the card."""
+    import torch
+
+    from geomx_tpu_torch.examples.cnn import build_parser, train
+
+    args = build_parser().parse_args(
+        ["--parties", "2", "--workers", "2", "--global-servers", "1",
+         "--batch", "32", "--optimizer", "adam", "--lr", "0.001",
+         "--seed", "0", *extra])
+    mode = "esync" if args.esync else "hfa"
+    stamps = []
+    out = train(args, log=lambda msg: stamps.append(time.perf_counter()))
+    hist = out["histories"]
+    assert len(hist) == 4 and all(len(h) >= args.steps
+                                  for h in hist.values()), \
+        f"{mode}: a worker did not finish its steps"
+    assert all(math.isfinite(l) for h in hist.values() for l, _ in h), \
+        f"{mode}: non-finite loss"
+    final = out["final_params"]
+    assert set(final) == {(p, r) for p in range(2) for r in range(2)}
+    for params in final.values():
+        assert all(t.is_cuda for t in params.values()), \
+            f"{mode}: final weights are not on the card"
+        assert sum(t.numel() for t in params.values()) == 429_258
+        assert all(bool(torch.isfinite(t).all()) for t in params.values())
+    bits = {w: [t.cpu().numpy().tobytes() for t in params.values()]
+            for w, params in final.items()}
+    for p in range(2):
+        assert bits[(p, 0)] == bits[(p, 1)], \
+            f"{mode}: party {p}'s workers hold different weights"
+    all_equal = bits[(0, 0)] == bits[(1, 0)]
+    if mode == "hfa":
+        assert all_equal, "hfa: the parties differ after the WAN round"
+    servers = out["sim_stats"]["local"] + out["sim_stats"]["global"]
+    for s in servers:
+        assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
+    g = out["sim_stats"]["global"][0]
+    assert g["opt_device_ms"] > 0, \
+        f"{mode}: the global server added no milestone delta on the card"
+    steps = args.steps        # HFA: steps; ESync: sync rounds
+    rate = ((len(stamps) - 3) / (stamps[-1] - stamps[2])
+            if len(stamps) > 3 else None)
+    wan = out["wan"]["wan_send_bytes"] / steps
+    local_steps = {f"{p},{r}": len(h) for (p, r), h in sorted(hist.items())}
+    first = [h[0][0] for h in hist.values()]
+    last = [h[-1][0] for h in hist.values()]
+    log(f"sync mode {mode}: {steps} {'steps' if mode == 'hfa' else 'rounds'}"
+        f", local steps by worker {local_steps}, loss {np.mean(first):.4f} "
+        f"-> {np.mean(last):.4f}, "
+        + (f"{rate:.2f} {'steps' if mode == 'hfa' else 'rounds'}/s steady "
+           "(worker 0,0), " if rate else "")
+        + f"{out['seconds']:.2f} s total, WAN bytes/"
+        f"{'step' if mode == 'hfa' else 'round'} {wan:.0f}; parties "
+        f"bitwise equal: {all_equal}; global opt_device_ms "
+        f"{g['opt_device_ms']}")
+    return {"mode": mode, "steps": steps, "per_s_steady": rate,
+            "wan_bytes_per_step": wan, "local_steps": local_steps,
+            "parties_bitwise_equal": all_equal,
+            "loss_first": float(np.mean(first)),
+            "loss_last": float(np.mean(last)), "seconds": out["seconds"],
+            "global_opt_device_ms": g["opt_device_ms"]}
+
+
 def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
     """The flagship LM through ``geomx_tpu_torch.examples.lm``."""
     import torch
@@ -1506,6 +1691,7 @@ def main() -> int:
         f"{ {n: round(v, 1) for n, v in build_s.items()} } s")
 
     flash = check_flash(dev)
+    flash["fixed_order"] = check_flash_ordered(dev)
     log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
     block = check_block(dev)
     log(f"phase 3b done in {time.perf_counter() - t0:.1f} s")
@@ -1537,6 +1723,12 @@ def main() -> int:
             assert counts[name] == want, \
                 f"{name} launched {counts[name]} times on the {path} " \
                 f"path, not {want}"
+    # GeoMX's own sync modes: no kernel of the table on their path
+    for path, extra in (("hfa", HFA_ARGS), ("esync", ESYNC_ARGS)):
+        reset_all_launches()
+        geo[path] = run_sync_mode(extra)
+        geo[path]["launches"] = all_launches()
+        log(f"main-path launches under {path}: {geo[path]['launches']}")
     # the block kernels' main paths are the sequence-parallel steps of
     # phases 4b (bf16) and 4c (f32)
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]

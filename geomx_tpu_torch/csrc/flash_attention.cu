@@ -56,7 +56,8 @@
 //     one block per key tile (queries from the diagonal down, 64 at a
 //     step) forming dK, dV and each step's dQ partial in five products,
 //     the partials added into the scratch by TMA's reduce-add (in an
-//     order that may change from run to run), then dq_convert_kernel
+//     order that may change from run to run, or, on the fixed-order
+//     path, in ascending key tiles), then dq_convert_kernel
 //     (bwd_tc_kernel, below);
 //   * tile height: two consumer warpgroups (128-row tiles) when the grid
 //     of 128-row tiles covers every SM once, else one (64-row tiles,
@@ -1021,6 +1022,19 @@ dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // f32 sums across key tiles varies from run to run; dq_convert_kernel
 // rounds the sum to bf16 once.
 //
+// The fixed-order path (ORDERED, under PyTorch's deterministic switch)
+// adds the partials of a 64-query step in ascending key tiles, as JAX's
+// kernel sums dQ over key blocks in order, so that two runs give the
+// same bits.  One int a (b*h, query step, warpgroup), zeroed before the
+// launch, counts the key tiles that have added theirs; the key tiles
+// that reach query step qt are 0 .. qt*64/BN, so tile kt's turn is kt.
+// The writer warp waits for its turn, issues the reduce, waits for it to
+// complete (not only to read the staging) and passes the turn on.  The
+// blocks of one (b, h) are launched in ascending key tiles (the block
+// order below), so a block waits only on blocks launched before it, as
+// long as the card dispatches blocks in blockIdx order; wait_turn traps
+// rather than hang if it ever does not.
+//
 // Overlap: dV is issued as soon as p is packed, so the tensor cores run it
 // while the consumer waits for dP^T and forms dS.
 //
@@ -1060,7 +1074,7 @@ struct BwdTc {
 // arrives, w waits)
 constexpr int DS_LOCAL = 1, DS_READY = 2, DQ_FULL = 6, DQ_EMPTY = 8;
 
-template <int D, int NWG>
+template <int D, int NWG, bool ORDERED>
 __global__ void __launch_bounds__(tc_threads(NWG), 1)
 bwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
@@ -1068,8 +1082,8 @@ bwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tdo,
               const __grid_constant__ CUtensorMap tdq,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int n,
-              int group, Strides s, float scale) {
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int* turns,
+              int H, int n, int group, Strides s, float scale) {
   using L = BwdTc<D, NWG>;
   constexpr int BN = L::BN, QB = L::QB, DQN = L::DQN;
   extern __shared__ uint8_t smem_raw[];
@@ -1119,13 +1133,24 @@ bwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
         for (int w = 0; w < NWG; ++w) {
           hopper::named_sync(DQ_FULL + w, 160);   // warpgroup w staged
           if (lane == 0) {
+            int* turn = nullptr;     // of (b*h, query step, w)
+            if constexpr (ORDERED) {
+              turn = turns + (int64_t(bh) * ((n + QB - 1) / QB) + q0 / QB) *
+                                 NWG + w;
+              hopper::wait_turn(turn, kt);
+            }
 #pragma unroll
             for (int box = 0; box < DQN / 32; ++box)
               hopper::tma_reduce_add_4d(
                   dQs + w * L::DQ_BYTES + box * QB * 128, &tdq,
                   w * DQN + box * 32, h, q0, b);
             hopper::bulk_commit();
-            hopper::bulk_wait_read();
+            if constexpr (ORDERED) {
+              hopper::bulk_wait();
+              hopper::pass_turn(turn);
+            } else {
+              hopper::bulk_wait_read();
+            }
           }
           __syncwarp();
           if (it + 1 < n_it) hopper::named_arrive(DQ_EMPTY + w, 160);
@@ -1377,11 +1402,11 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
   return launch_fwd_tc<D, 1>(q, k, v, o, lse, B, H, n, s, scale, stream);
 }
 
-template <int D, int NWG>
+template <int D, int NWG, bool ORDERED>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
-                          const float* delta, float* dq_acc, void* dk,
-                          void* dv, int B, int H, int n, Strides s,
+                          const float* delta, float* dq_acc, int* turns,
+                          void* dk, void* dv, int B, int H, int n, Strides s,
                           float scale, cudaStream_t stream) {
   using L = BwdTc<D, NWG>;
   // key tiles of L::BN, query steps of L::QB; dQ's f32 boxes of 64 rows
@@ -1392,17 +1417,23 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
       !bthd_map(&tdo, dout, B, H, n, D, s, L::QB) ||
       !bthd_map(&tdq, dq_acc, B, H, n, D, s, L::QB, 4))
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(bwd_tc_kernel<D, NWG>, L::SMEM);
+  cudaError_t err = set_smem(bwd_tc_kernel<D, NWG, ORDERED>, L::SMEM);
   if (err != cudaSuccess) return err;
+  if (ORDERED) {
+    err = cudaMemsetAsync(
+        turns, 0, sizeof(int) * B * H * ((n + L::QB - 1) / L::QB) * NWG,
+        stream);
+    if (err != cudaSuccess) return err;
+  }
   // (b, h) a group: their Q and dO in 32 MB of the 50 MB L2
   const int64_t per_bh = int64_t(n) * D * 4;
   const int group = int(std::max<int64_t>(
       1, std::min<int64_t>(B * H, (int64_t(32) << 20) / per_bh)));
   const int64_t n_kt = (n + L::BN - 1) / L::BN;
-  bwd_tc_kernel<D, NWG>
+  bwd_tc_kernel<D, NWG, ORDERED>
       <<<unsigned(B * H * n_kt), tc_threads(NWG), L::SMEM, stream>>>(
           tq, tk, tv, tdo, tdq, lse, delta, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), H, n, group, s, scale);
+          static_cast<bf16*>(dv), turns, H, n, group, s, scale);
   return cudaGetLastError();
 }
 
@@ -1446,28 +1477,42 @@ cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// delta pass (which zeroes dq_acc), the fused kernel, dQ rounded to bf16
+template <int D, bool ORDERED>
+cudaError_t launch_bwd_tiles(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, float* dq_acc, int* turns,
+                             void* dk, void* dv, int B, int H, int n,
+                             Strides s, float scale, cudaStream_t stream) {
+  if constexpr (D == 128) {
+    if (two_warpgroups(B, H, n))
+      return launch_bwd_tc<D, 2, ORDERED>(q, k, v, dout, lse, delta, dq_acc,
+                                          turns, dk, dv, B, H, n, s, scale,
+                                          stream);
+  }
+  return launch_bwd_tc<D, 1, ORDERED>(q, k, v, dout, lse, delta, dq_acc,
+                                      turns, dk, dv, B, H, n, s, scale,
+                                      stream);
+}
+
+// delta pass (which zeroes dq_acc), the fused kernel, dQ rounded to bf16;
+// turns (not null: the fixed-order path) holds B*H*ceil(n/64)*2 ints
 template <int D>
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, float* delta, float* dq_acc,
-                            void* dq, void* dk, void* dv, int B, int H,
-                            int n, Strides s, float scale,
+                            int* turns, void* dq, void* dk, void* dv, int B,
+                            int H, int n, Strides s, float scale,
                             cudaStream_t stream) {
   cudaError_t err =
       launch_delta<bf16, D>(o, dout, delta, dq_acc, B, H, n, s, stream);
   if (err != cudaSuccess) return err;
-  if constexpr (D == 128) {
-    if (two_warpgroups(B, H, n))
-      err = launch_bwd_tc<D, 2>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B,
-                                H, n, s, scale, stream);
-    else
-      err = launch_bwd_tc<D, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B,
-                                H, n, s, scale, stream);
-  } else {
-    err = launch_bwd_tc<D, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H,
-                              n, s, scale, stream);
-  }
+  err = turns != nullptr
+            ? launch_bwd_tiles<D, true>(q, k, v, dout, lse, delta, dq_acc,
+                                        turns, dk, dv, B, H, n, s, scale,
+                                        stream)
+            : launch_bwd_tiles<D, false>(q, k, v, dout, lse, delta, dq_acc,
+                                         turns, dk, dv, B, H, n, s, scale,
+                                         stream);
   if (err != cudaSuccess) return err;
   const int64_t n8 = int64_t(B) * n * H * D / 8;
   dq_convert_kernel<<<grid_for(n8), NT, 0, stream>>>(
@@ -1503,13 +1548,15 @@ extern "C" int geo_flash_fwd(int dtype, int head_dim, const void* q,
 
 // delta is f32 [B, H, T] scratch the caller allocates; dq_acc f32 scratch
 // of q's shape and strides (bf16 only: the delta pass zeroes it and the
-// key tiles add their dQ into it; null in f32).
+// key tiles add their dQ into it; null in f32).  turns: null, or (bf16
+// only) B*H*ceil(T/64)*2 ints of scratch, which asks for the fixed-order
+// dQ sum (the launch zeroes them).
 extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* o,
                              const void* dout, const float* lse,
-                             float* delta, float* dq_acc, void* dq, void* dk,
-                             void* dv, int B, int H, int n, float scale,
-                             void* stream) {
+                             float* delta, float* dq_acc, int* turns,
+                             void* dq, void* dk, void* dv, int B, int H,
+                             int n, float scale, void* stream) {
   const Strides s = contiguous(H, n, head_dim);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
@@ -1520,11 +1567,11 @@ extern "C" int geo_flash_bwd(int dtype, int head_dim, const void* q,
                                H, n, s, scale, cs);
   if (dq_acc == nullptr) return int(cudaErrorInvalidValue);
   if (dtype == 1 && head_dim == 64)
-    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk,
-                               dv, B, H, n, s, scale, cs);
+    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq_acc, turns,
+                               dq, dk, dv, B, H, n, s, scale, cs);
   if (dtype == 1 && head_dim == 128)
-    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk,
-                                dv, B, H, n, s, scale, cs);
+    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq_acc, turns,
+                                dq, dk, dv, B, H, n, s, scale, cs);
   return int(cudaErrorInvalidValue);
 }
 

@@ -207,6 +207,47 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// Turns between blocks over an int in global memory: wait_turn spins
+// until it reads `turn` (acquire, GPU scope), then orders the async
+// proxy's next copies after that read; pass_turn, once the thread's
+// bulk groups have completed (bulk_wait), orders their writes before a
+// release add of 1.  Blocks that take turns this way must be dispatched
+// in the order of their turns.  CUDA does not document that blocks are
+// dispatched in blockIdx order (FlashAttention-3's deterministic
+// backward rests on it too), so the spin is bounded: a wait longer than
+// TURN_TIMEOUT_NS traps, and the launch fails with an error the host
+// sees at its next synchronisation instead of hanging the card.  The
+// low 32 bits of the nanosecond timer wrap every 4.29 s, more than the
+// bound, so their unsigned difference is the time waited.
+constexpr uint32_t TURN_TIMEOUT_NS = 2000000000u;   // 2 s
+
+__device__ __forceinline__ uint32_t globaltimer_lo() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(t));
+  return t;
+}
+
+__device__ __forceinline__ void wait_turn(const int* flag, int turn) {
+  int v;
+  const uint32_t t0 = globaltimer_lo();
+  for (;;) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+    if (v == turn) break;
+    if (globaltimer_lo() - t0 > TURN_TIMEOUT_NS) __trap();
+    __nanosleep(32);
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pass_turn(int* flag) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag)
+               : "memory");
+}
+
 // a barrier of `threads` threads (whole warps) on named barrier `id` (1-15;
 // 0 is __syncthreads')
 __device__ __forceinline__ void named_sync(int id, int threads) {

@@ -116,7 +116,8 @@ def pieces(q, k, v, o, lse, do, scale) -> dict:
         return lib.geo_flash_bwd(dt, D, q.data_ptr(), k.data_ptr(),
                                  v.data_ptr(), o.data_ptr(), do.data_ptr(),
                                  lse.data_ptr(), base + 4 * n_acc,
-                                 base if bf16 else None, dq.data_ptr(),
+                                 base if bf16 else None, None,
+                                 dq.data_ptr(),
                                  dk.data_ptr(), dv.data_ptr(), B, H, T,
                                  scale, stream)
 

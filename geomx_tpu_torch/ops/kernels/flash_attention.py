@@ -20,7 +20,11 @@ kernels under the name with ``_f32``):
   In bf16 that is the delta pass (which also zeroes an f32 dQ scratch),
   one kernel that forms dK, dV and each key tile's dQ and adds the dQ
   into the scratch, and the pass that rounds dQ to bf16; in f32 the
-  delta pass, the dK/dV kernel and the dQ kernel.
+  delta pass, the dK/dV kernel and the dQ kernel.  While
+  ``torch.are_deterministic_algorithms_enabled()``, the bf16 kernel adds
+  the dQ partials in ascending key tiles (counted under
+  ``flash_bwd_ordered``), so that two runs give the same bits; otherwise
+  the order of those f32 adds varies from run to run.
 
 The launch path is short, because at the LM's shape a call costs more on
 the host than on the card (``examples/time_flash_launch.py``): one pass
@@ -49,7 +53,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = torch.float32
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_f32": 0,
-                            "flash_bwd": 0, "flash_bwd_f32": 0}
+                            "flash_bwd": 0, "flash_bwd_ordered": 0,
+                            "flash_bwd_f32": 0}
 _mu = threading.Lock()
 
 
@@ -68,8 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.geo_flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, f, p]
     lib.geo_flash_fwd.restype = i
-    lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i,
-                                  i, i, f, p]
+    lib.geo_flash_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p,
+                                  i, i, i, f, p]
     lib.geo_flash_bwd.restype = i
     lib.geo_flash_host_pieces.argtypes = [i, i, p, i, i, i, i,
                                           ctypes.POINTER(ctypes.c_double)]
@@ -184,23 +189,31 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal attention backward on the card: ``(dq, dk, dv)`` in q's
     dtype, from the forward's ``o`` and ``lse`` and the output grad.  In
     bf16 dQ is summed over the key tiles in an f32 scratch (zeroed by the
-    delta pass) and rounded once by a last pass."""
+    delta pass) and rounded once by a last pass; in ascending key tiles
+    while PyTorch's deterministic switch is on."""
     (B, T, H, D), ptrs = _check(q, (("k", k), ("v", v), ("o", o),
                                     ("do", do)))
     _check_lse(lse, q, B, H, T)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if B * T * H == 0:
         return dq, dk, dv
-    # one f32 scratch: dQ's sum (bf16 only; 16-byte aligned at its start),
-    # then delta [B, H, T]
+    # one 4-byte scratch: dQ's f32 sum (bf16 only; 16-byte aligned at its
+    # start), delta f32 [B, H, T], and on the fixed-order path the int32
+    # turns of each (b*h, 64-query step, consumer warpgroup)
     f32 = q.dtype is _F32
+    ordered = not f32 and torch.are_deterministic_algorithms_enabled()
     n_acc = 0 if f32 else B * T * H * D
-    scratch = torch.empty(n_acc + B * H * T, dtype=_F32, device=q.device)
+    n_turns = B * H * -(-T // 64) * 2 if ordered else 0
+    scratch = torch.empty(n_acc + B * H * T + n_turns, dtype=_F32,
+                          device=q.device)
     base = scratch.data_ptr()
     rc = library().geo_flash_bwd(
         0 if f32 else 1, D, *ptrs, lse.data_ptr(), base + 4 * n_acc,
-        None if f32 else base, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, T, sm_scale, _raw_stream(q.get_device()))
+        None if f32 else base,
+        base + 4 * (n_acc + B * H * T) if ordered else None, dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, T, sm_scale,
+        _raw_stream(q.get_device()))
     _raise_on(rc, "flash backward")
-    _count("flash_bwd_f32" if f32 else "flash_bwd")
+    _count("flash_bwd_f32" if f32 else
+           "flash_bwd_ordered" if ordered else "flash_bwd")
     return dq, dk, dv

@@ -1,11 +1,21 @@
-"""Worker-side training loop gluing PyTorch compute to the HiPS kvstore.
+"""Worker-side training loops gluing PyTorch compute to the HiPS kvstore.
 
-The counterpart of the JAX package's ``training.py`` (``run_worker``):
-autograd → per-layer ``kv.push(grad, priority=-idx)`` → ``kv.pull`` →
-next step, with the device↔host handoff at the worker edge — gradients
-leave the device as numpy, pulled weights come back as tensors on the
-worker's device.  Per-layer priorities let shallow layers jump the send
-queue under P3.
+The counterpart of the JAX package's ``training.py``:
+
+- :func:`run_worker`, the FSA loop: autograd → per-layer
+  ``kv.push(grad, priority=-idx)`` → ``kv.pull`` → next step;
+- :func:`run_worker_hfa`, HFA (hierarchical frequency aggregation): k1
+  local steps with a worker-side optimizer
+  (:mod:`geomx_tpu_torch.optim.local`), then one weight sync;
+- :func:`run_worker_esync`, ESync: the party's state server assigns each
+  worker its local steps a sync round;
+- :class:`Trainer`, the fit/evaluate/save/load facade over them;
+- :func:`save_params` / :func:`load_params`, the port's checkpoint.
+
+The device↔host handoff is at the worker edge: gradients (or, under HFA
+and ESync, weights) leave the device as numpy, pulled weights come back
+as tensors on the worker's device.  Per-layer priorities let shallow
+layers jump the send queue under P3.
 
 ``params`` is an ordered dict of tensors whose order is the kv key order
 (:func:`flatten_params`), the same order as the JAX package's flax
@@ -21,6 +31,29 @@ import numpy as np
 import torch
 
 from geomx_tpu_torch.kvstore.client import WorkerKVStore
+
+
+def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:
+    """The port's checkpoint: ``torch.save`` of the ordered ``{name: f32
+    CPU tensor}`` dict, in key order, written atomically.  (The JAX
+    package writes flax msgpack; a JAX checkpoint reaches the port
+    through :func:`geomx_tpu_torch.convert.flax_to_torch`.)"""
+    from geomx_tpu_torch.utils.io import atomic_write
+
+    host = OrderedDict((n, t.detach().to("cpu", torch.float32))
+                       for n, t in params.items())
+    with atomic_write(path) as f:
+        torch.save(host, f)
+
+
+def load_params(path: str, device=None) -> "OrderedDict[str, torch.Tensor]":
+    """Inverse of :func:`save_params`, onto ``device`` (CUDA unless
+    ``"cpu"``)."""
+    from geomx_tpu_torch.core.platform import resolve_device
+
+    dev = resolve_device(device)
+    host = torch.load(path, map_location="cpu", weights_only=True)
+    return OrderedDict((n, t.to(dev)) for n, t in host.items())
 
 
 def _preempt_noticed(kv) -> bool:
@@ -131,6 +164,255 @@ def run_worker(
     if params_out is not None:
         params_out["params"] = params
     return history
+
+
+def run_worker_hfa(
+    kv: WorkerKVStore,
+    params: Dict[str, torch.Tensor],
+    grad_fn: Callable,
+    data_iter: Iterable,
+    steps: int,
+    k1: int = 2,
+    optimizer=None,
+    barrier_init: bool = True,
+    log_fn: Optional[Callable[[int, float, float], None]] = None,
+    params_out: Optional[dict] = None,
+    measure=None,
+) -> List[Tuple[float, float]]:
+    """HFA client loop: each worker runs a LOCAL optimizer (a
+    :mod:`geomx_tpu_torch.optim.local` transform, ``adam(1e-2)`` by
+    default) for k1 steps, then pushes weight/num_workers (the local
+    server averages weights; every k2-th sync the milestone delta
+    crosses the WAN).  The optimizer state persists across syncs."""
+    from geomx_tpu_torch.optim import local
+    from geomx_tpu_torch.utils.measure import Measure
+
+    m = measure if measure is not None else Measure()
+    if optimizer is None:
+        optimizer = local.adam(1e-2)
+    leaves, treedef = flatten_params(params)
+    for tid, leaf in enumerate(leaves):
+        kv.init(tid, leaf, barrier=barrier_init)
+    params = unflatten_params(treedef, leaves)
+    opt_state = optimizer.init(params)
+    history: List[Tuple[float, float]] = []
+    buf: List[Optional[np.ndarray]] = [None] * len(leaves)
+
+    for step, (x, y) in enumerate(data_iter):
+        if step >= steps or _preempt_noticed(kv):
+            break
+        m.step_start()
+        with m.phase("grad"):
+            loss, acc, grads = grad_fn(params, x, y)
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = local.apply_updates(params, updates)
+        if (step + 1) % k1 == 0:
+            params, _ = _hfa_sync_round(kv, params, treedef, len(leaves),
+                                        buf, m)
+        m.step_end()
+        history.append((float(loss), float(acc)))
+        if log_fn is not None:
+            log_fn(step, float(loss), float(acc))
+    if params_out is not None:
+        params_out["params"] = params
+    return history
+
+
+def _hfa_sync_round(kv, params, treedef, n_leaves, buf, m,
+                    measure_comm: bool = False):
+    """One weight-exchange sync, shared by the HFA and ESync loops: push
+    party-mean weights (host f32), pull the merged result into ``buf``.
+
+    Returns ``(params, comm_s)``.  ``comm_s`` (only when
+    ``measure_comm``) times the push acks alone, the uplink: the pull
+    barrier after them is the straggler wait ESync exists to remove."""
+    import time
+
+    w_leaves, _ = flatten_params(params)
+    comm_s = None
+    # re-read the party size at every sync: join/leave moves it, and the
+    # denominator each push used rides along as ``hfa_n``
+    n = kv.num_workers
+    t1 = time.perf_counter()
+    with m.phase("push"):
+        push_ts = [kv.push(tid, w / n, priority=-tid, body={"hfa_n": n})
+                   for tid, w in enumerate(w_leaves)]
+        if measure_comm:
+            for pts in push_ts:
+                kv.worker.wait(pts)
+            comm_s = time.perf_counter() - t1
+        for tid in range(n_leaves):
+            kv.pull(tid, lambda t, arr: buf.__setitem__(t, arr),
+                    priority=-tid)
+    with m.phase("pull_wait"):
+        kv.wait_all()
+    return unflatten_params(treedef, buf), comm_s
+
+
+def run_worker_esync(
+    kv: WorkerKVStore,
+    params: Dict[str, torch.Tensor],
+    grad_fn: Callable,
+    data_iter: Iterable,
+    rounds: int,
+    optimizer=None,
+    barrier_init: bool = True,
+    log_fn: Optional[Callable[[int, float, float], None]] = None,
+    params_out: Optional[dict] = None,
+    max_local_steps: int = 64,
+    measure=None,
+    rounds_out: Optional[list] = None,
+) -> List[Tuple[float, float]]:
+    """ESync client loop: like HFA, a LOCAL optimizer and a mean-weight
+    push at every sync, but the party's state server assigns each worker
+    its local steps a round (``sched/esync.py``), so fast workers fill
+    the slowest one's round with local progress instead of idling at
+    the barrier.
+
+    ``rounds`` counts SYNC rounds, the same on every worker of the party;
+    local steps a round vary per worker (1 until the first plan).
+    ``data_iter`` should yield up to rounds × max_local_steps batches or
+    be cyclic; a worker whose data runs dry still pushes every round
+    and stops reporting.  ``rounds_out`` gets (local steps, reach-server
+    seconds) per round.  Needs HFA on the servers (Config.use_hfa)."""
+    import time
+
+    from geomx_tpu_torch.optim import local
+    from geomx_tpu_torch.utils.measure import Measure
+
+    m = measure if measure is not None else Measure()
+    if optimizer is None:
+        optimizer = local.adam(1e-2)
+    leaves, treedef = flatten_params(params)
+    for tid, leaf in enumerate(leaves):
+        kv.init(tid, leaf, barrier=barrier_init)
+    params = unflatten_params(treedef, leaves)
+    opt_state = optimizer.init(params)
+    history: List[Tuple[float, float]] = []
+    buf: List[Optional[np.ndarray]] = [None] * len(leaves)
+
+    it = iter(data_iter)
+    local_steps = 1  # until the state server has a plan
+    loss = acc = 0.0
+    for _round in range(rounds):
+        if _preempt_noticed(kv):
+            break
+        m.step_start()
+        t0 = time.perf_counter()
+        ran = 0
+        with m.phase("grad"):
+            for _ in range(local_steps):
+                try:
+                    x, y = next(it)
+                except StopIteration:
+                    break
+                loss, acc, grads = grad_fn(params, x, y)
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                params = local.apply_updates(params, updates)
+                ran += 1
+                history.append((float(loss), float(acc)))
+        step_s = (time.perf_counter() - t0) / max(ran, 1)
+        params, comm_s = _hfa_sync_round(kv, params, treedef, len(leaves),
+                                         buf, m, measure_comm=True)
+        m.step_end()
+        if rounds_out is not None:
+            rounds_out.append((ran, round(step_s * ran + comm_s, 4)))
+        if ran > 0:
+            # a dry iterator must not report: its near-zero step time
+            # would pin every worker that still has data at min_steps
+            local_steps = kv.esync_report(step_s, comm_s,
+                                          max_steps=max_local_steps)
+        if log_fn is not None:
+            log_fn(_round, float(loss), float(acc))
+    if params_out is not None:
+        params_out["params"] = params
+    return history
+
+
+class Trainer:
+    """Fit/evaluate facade over the worker loops: rank-0 configuration
+    (optimizer to the global tier, compression to the party server), the
+    init barrier, the loop (plain FSA or HFA), streaming-metric
+    evaluation, and checkpoints in the port's format."""
+
+    def __init__(self, kv: WorkerKVStore, params, grad_fn: Callable,
+                 model=None, optimizer: Optional[dict] = None,
+                 compression: Optional[dict] = None,
+                 hfa_k1: Optional[int] = None):
+        self.kv = kv
+        self.params = params
+        self.grad_fn = grad_fn
+        self.model = model  # needs ``apply(params, x)`` for evaluate()
+        self.hfa_k1 = hfa_k1
+        if (hfa_k1 is not None) != bool(kv.config.use_hfa):
+            # the HFA loop pushes WEIGHTS, the plain loop GRADIENTS: a
+            # mismatch with the servers' mode feeds weights to the
+            # optimizer as gradients
+            raise ValueError(
+                "hfa_k1 must be set if and only if the cluster runs with "
+                f"use_hfa (got hfa_k1={hfa_k1!r}, "
+                f"config.use_hfa={kv.config.use_hfa})")
+        if kv.party == 0 and kv.rank == 0 and optimizer is not None:
+            kv.set_optimizer(optimizer)
+        if kv.rank == 0 and compression is not None:
+            kv.set_gradient_compression(compression)
+        kv.barrier()
+
+    def fit(self, data_iter: Iterable, steps: int,
+            log_fn: Optional[Callable[[int, float, float], None]] = None,
+            measure=None) -> List[Tuple[float, float]]:
+        """Train; returns [(loss, acc)] per step.  The updated params
+        stay on the trainer for evaluate() and further fits."""
+        captured: dict = {}
+        if self.hfa_k1 is not None:
+            hist = run_worker_hfa(self.kv, self.params, self.grad_fn,
+                                  data_iter, steps, k1=self.hfa_k1,
+                                  log_fn=log_fn, params_out=captured,
+                                  measure=measure)
+        else:
+            hist = run_worker(self.kv, self.params, self.grad_fn,
+                              data_iter, steps, log_fn=log_fn,
+                              params_out=captured, measure=measure)
+        if "params" in captured:
+            self.params = captured["params"]
+        return hist
+
+    def save(self, path: str) -> None:
+        """Persist the current params (:func:`save_params`)."""
+        save_params(path, self.params)
+
+    def load(self, path: str) -> None:
+        """Restore params onto their device AND overwrite the servers'
+        weights (a local-only load would be dropped at the first sync).
+        Call on every worker of every party, between fits."""
+        dev = next(iter(self.params.values())).device
+        self.params = load_params(path, dev)
+        leaves, _ = flatten_params(self.params)
+        self.kv.init_all(dict(enumerate(leaves)), overwrite=True)
+        self.kv.barrier()
+
+    def evaluate(self, data_iter: Iterable, batches: int, metric=None):
+        """Forward ``batches`` batches through ``model.apply``, streaming
+        (labels, softmax probabilities in f32) into ``metric`` (default
+        Accuracy); returns ``metric.get()``."""
+        from geomx_tpu_torch.utils import metrics as _metrics
+
+        if self.model is None:
+            raise ValueError("evaluate() needs the model; pass it to "
+                             "Trainer(model=...)")
+        if metric is None:
+            metric = _metrics.Accuracy()
+        dev = next(iter(self.params.values())).device
+        for i, (x, y) in enumerate(data_iter):
+            if i >= batches:
+                break
+            with torch.no_grad():
+                logits = self.model.apply(
+                    self.params, torch.as_tensor(np.asarray(x), device=dev))
+                probs = torch.softmax(logits.float(), dim=-1)
+            metric.update(np.asarray(y), probs.cpu().numpy())
+        return metric.get()
 
 
 def build_flagship_lm(device=None, attn_impl: str = "fast"):

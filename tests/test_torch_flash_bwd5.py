@@ -5,11 +5,12 @@ wrappers' checks.
 The bf16 backward kernel (``csrc/flash_attention.cu`` ``bwd_tc_kernel``)
 forms five products per key tile and adds the dQ partial of each
 consumer warpgroup's 64 keys into an f32 scratch with TMA's reduce-add, in an order that changes from
-run to run; a last pass rounds the f32 sum to bf16 once.  Its rounding
+run to run, or, while ``torch.are_deterministic_algorithms_enabled()``,
+in ascending key tiles; a last pass rounds the f32 sum to bf16 once.  Its rounding
 points are JAX's kernel's: ``p`` rounded to bf16 before ``dv``, ``ds *
 sm_scale`` rounded before ``dk`` and the dQ product.  The emulation
 below does the same arithmetic on the CPU: per-key-tile dQ partials in
-f32, summed in a seeded random order.
+f32, summed in a seeded random order, or in ascending key tiles.
 
 Tolerances (inputs seeded with numpy, unit scale):
 - against JAX's ``jax.grad`` of ``dense_attention`` in bf16 (as
@@ -19,9 +20,19 @@ Tolerances (inputs seeded with numpy, unit scale):
   rounds: nearer it, in relative L2, than the unrounded backward (``p``
   and ``ds`` kept in f32, dK and dQ scaled after the product) is.  At
   T = 1 nothing rounds (``p`` is 1 and ``ds`` 0), so that check runs at
-  T 100 and 200.
+  T 100 and 200;
+- the fixed-order sum: bitwise equal to itself whatever the seed of the
+  random order (tolerance: none).
+
+On the card (``cuda`` marker, skipped without one): five backwards on
+the same inputs at the LM's and the MFU shape (and three more), dK and
+dV bitwise equal on both paths, dQ bitwise equal on the fixed-order
+path, each within the bf16 gates of the card test in
+``tests/test_torch_flash.py`` (max abs 2e-2 × max(1, largest entry),
+relative L2 1e-2).
 """
 
+import functools
 import math
 
 import jax
@@ -40,11 +51,14 @@ def _inputs(shape, seed):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
 
 
-def bwd5_emulated(q, k, v, o, lse, do, sm_scale, order_seed):
+def bwd5_emulated(q, k, v, o, lse, do, sm_scale, order_seed,
+                  ordered=False, f32_dq=False):
     """The kernel's bf16 backward on the CPU: ``(dq, dk, dv)`` in bf16.
     Each consumer warpgroup's 64 keys make one dQ partial, its rounded
     ``ds * sm_scale`` times its keys in f32, and the partials are added
-    in f32 in a random order."""
+    in f32 in a random order, or in ascending key tiles when
+    ``ordered`` (the fixed-order path; ``order_seed`` is then unused).
+    ``f32_dq`` returns dQ's f32 sum, before the last pass rounds it."""
     B, T, H, D = q.shape
     bn = 64
     s = FA._scores(q, k, sm_scale)                       # [B, H, T, T]
@@ -56,13 +70,14 @@ def bwd5_emulated(q, k, v, o, lse, do, sm_scale, order_seed):
     ds = ((dp - delta[..., None]) * p * sm_scale).bfloat16().float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     tiles = range(0, T, bn)
-    order = np.random.default_rng(order_seed).permutation(len(tiles))
+    order = (range(len(tiles)) if ordered else
+             np.random.default_rng(order_seed).permutation(len(tiles)))
     dq = torch.zeros_like(qf)
     for t in order:
         k0 = tiles[t]
         dq += torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + bn],
                            kf[:, k0:k0 + bn])
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+    return (dq if f32_dq else dq.bfloat16()), dk.bfloat16(), dv.bfloat16()
 
 
 def _unrounded_bwd(q, k, v, o, lse, do, sm_scale):
@@ -92,13 +107,11 @@ def _bf16_case(shape, seed):
     return (q, k, v, w), (tq, tk, tv, tw), o, lse, scale
 
 
-_SHAPES = [(2, 1, 2, 64), (1, 100, 2, 64), (1, 200, 2, 64),
-           (2, 1, 2, 128), (1, 100, 2, 128), (1, 200, 2, 128)]
-
-
-@pytest.mark.parametrize("shape", _SHAPES)
-def test_emulated_bwd5_within_bf16_gate_of_jax(shape):
-    (q, k, v, w), (tq, tk, tv, tw), o, lse, scale = _bf16_case(shape, 3)
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_grads(shape, seed):
+    """JAX's ``jax.grad`` of ``dense_attention`` in bf16 on
+    ``_bf16_case(shape, seed)``'s inputs, as f32 numpy (dq, dk, dv)."""
+    q, k, v, w = _inputs(shape, seed)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     jw = jnp.asarray(w)
 
@@ -106,10 +119,21 @@ def test_emulated_bwd5_within_bf16_gate_of_jax(shape):
         return jnp.sum(j_dense(a, b, c, causal=True).astype(jnp.float32)
                        * jw)
 
-    j_g = jax.grad(j_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    return tuple(np.asarray(g, np.float32) for g in
+                 jax.grad(j_loss, argnums=(0, 1, 2))(jq, jk, jv))
+
+
+_SHAPES = [(2, 1, 2, 64), (1, 100, 2, 64), (1, 200, 2, 64),
+           (2, 1, 2, 128), (1, 100, 2, 128), (1, 200, 2, 128)]
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_emulated_bwd5_within_bf16_gate_of_jax(shape):
+    _, (tq, tk, tv, tw), o, lse, scale = _bf16_case(shape, 3)
+    j_g = _jax_bf16_grads(shape, 3)
     got = bwd5_emulated(tq, tk, tv, o, lse, tw, scale, order_seed=sum(shape))
     for g, r, name in zip(got, j_g, "qkv"):
-        err = np.max(np.abs(g.float().numpy() - np.asarray(r, np.float32)))
+        err = np.max(np.abs(g.float().numpy() - r))
         assert err < 5e-2, f"d{name}: {err}"
 
 
@@ -135,6 +159,98 @@ def test_dq_summation_order_moves_only_f32_rounding():
     ulp = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7 + 1e-30
     assert bool(((a - b).abs() <= ulp).all())
     assert float((a != b).float().mean()) <= 0.05
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 2, 64), (1, 200, 2, 128)])
+def test_fixed_order_emulation_is_the_same_bits_whatever_the_seed(shape):
+    _, (tq, tk, tv, tw), o, lse, scale = _bf16_case(shape, 9)
+    # dQ compared in f32, before the last pass rounds it (equal f32 bits
+    # round to equal bf16 bits); dK and dV in bf16
+    fixed = [bwd5_emulated(tq, tk, tv, o, lse, tw, scale, s, ordered=True,
+                           f32_dq=True) for s in range(4)]
+    for run in fixed[1:]:
+        assert torch.equal(run[0].view(torch.int32),
+                           fixed[0][0].view(torch.int32))
+        for a, b in zip(run[1:], fixed[0][1:]):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    # random orders move some of the f32 bits
+    shuffled = [bwd5_emulated(tq, tk, tv, o, lse, tw, scale, s,
+                              f32_dq=True)[0] for s in range(2)]
+    assert any(not torch.equal(d, fixed[0][0]) for d in shuffled)
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_fixed_order_emulation_within_bf16_gate_of_jax(shape):
+    _, (tq, tk, tv, tw), o, lse, scale = _bf16_case(shape, 3)
+    j_g = _jax_bf16_grads(shape, 3)
+    got = bwd5_emulated(tq, tk, tv, o, lse, tw, scale, None, ordered=True)
+    for g, r, name in zip(got, j_g, "qkv"):
+        err = np.max(np.abs(g.float().numpy() - r))
+        assert err < 5e-2, f"d{name}: {err}"
+    if shape[1] > 1:
+        refs = FA.flash_attention_bwd_ref(tq, tk, tv, o, lse, tw, scale)
+        unr = _unrounded_bwd(tq, tk, tv, o, lse, tw, scale)
+        for g, r, u, name in zip(got, refs, unr, "qkv"):
+            assert _rel_l2(g, r) < _rel_l2(g, u), f"d{name}"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _backwards(q, k, v, o, lse, w, scale, runs, ordered):
+    """``runs`` backwards on the same inputs with PyTorch's
+    deterministic switch set to ``ordered`` (restored after)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(ordered)
+    try:
+        out = [K.flash_bwd(q, k, v, o, lse, w, scale) for _ in range(runs)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 6, 64), (4, 2048, 16, 128),
+                                   (2, 1000, 3, 64), (1, 2047, 2, 128),
+                                   (1, 1500, 24, 128)])
+def test_bf16_backward_reproducible_on_the_card(card, shape, record_property):
+    """The LM's and the MFU shape, a ragged tail, T off the tile and
+    the two-warpgroup tiles: five backwards a path."""
+    q, k, v, w = (torch.from_numpy(a).to(card, torch.bfloat16)
+                  for a in _inputs(shape, 11))
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, lse = K.flash_fwd(q, k, v, scale)
+    refs = FA.flash_attention_bwd_ref(q, k, v, o, lse, w, scale)
+    before = K.launches()
+    default = _backwards(q, k, v, o, lse, w, scale, 5, ordered=False)
+    fixed = _backwards(q, k, v, o, lse, w, scale, 5, ordered=True)
+    after = K.launches()
+    assert after["flash_bwd"] - before["flash_bwd"] == 5
+    assert after["flash_bwd_ordered"] - before["flash_bwd_ordered"] == 5
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    for runs in (default, fixed):
+        for run in runs[1:]:
+            assert same(run[1], runs[0][1]) and same(run[2], runs[0][2]), \
+                "dK or dV moved between runs"
+    dq_default_same = all(same(r[0], default[0][0]) for r in default[1:])
+    record_property("default_dq_bitwise_equal_across_5_runs",
+                    dq_default_same)
+    for run in fixed[1:]:
+        assert same(run[0], fixed[0][0]), "fixed-order dQ moved"
+    for g, r, name in zip(fixed[0], refs, ("dq", "dk", "dv")):
+        bound = 2e-2 * max(1.0, float(r.float().abs().max()))
+        assert float((g.float() - r.float()).abs().max()) < bound, name
+        assert _rel_l2(g, r) <= 1e-2, name
+    print(f"{shape}: default-path dQ bitwise equal across 5 runs: "
+          f"{dq_default_same}")
 
 
 class _OnCard:

@@ -2,8 +2,9 @@
 and its entry points run on CUDA unless the caller asks for the CPU.
 
 - every module of ``geomx_tpu_torch`` imports in a fresh interpreter
-  without pulling ``jax`` or ``geomx_tpu`` (the top-level name) into
-  ``sys.modules``;
+  without pulling ``jax``, ``flax``, ``optax``, ``msgpack`` or
+  ``geomx_tpu`` (the top-level name) into ``sys.modules`` (the machine
+  with the card has no ``flax``, ``optax`` or ``msgpack``);
 - no source file of the package imports from ``geomx_tpu``;
 - with CUDA absent, every entry point raises unless ``device="cpu"``.
 """
@@ -42,7 +43,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
-        "             if m in ('jax', 'flax', 'optax', 'geomx_tpu')\n"
+        "             if m in ('jax', 'flax', 'optax', 'msgpack',\n"
+        "                      'geomx_tpu')\n"
         "             or m.startswith(('jax.', 'geomx_tpu.')))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -77,13 +79,17 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
     from geomx_tpu_torch.kvstore.torch_backend import TorchBackend
     from geomx_tpu_torch.models import create_model_state
     from geomx_tpu_torch.models.cnn import create_cnn_state
+    from geomx_tpu_torch.training import load_params
 
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: create_cnn_state(seed=0),
                  lambda: create_model_state("cnn", 0),
                  lambda: TorchBackend(Config(topology=Topology())),
-                 lambda: main(["--steps", "1"])):
+                 lambda: main(["--steps", "1"]),
+                 lambda: main(["--steps", "1", "--hfa"]),
+                 lambda: main(["--steps", "1", "--esync"]),
+                 lambda: load_params("no-such-file.pt")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the default Config resolves to the torch backend on CUDA: the
