@@ -24,10 +24,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel's device time a call (``torch.profiler``, 10 calls each in one
    window); and the LM push sweep: the flagship LM's 35 key sizes in
    model order, one quantize each, then one dequantize each, CUDA-event
-   time over 20 sweeps.  Each kernel's event time must be below its
-   plain version's and below the event time of the Triton kernel it
-   replaced, as last measured (``TRITON_LAST_MS``): at 401,408 for all
-   three, and on the sweep for quantize and dequantize;
+   time of a sweep in 5 batches of 20 sweeps (each batch printed; the
+   kernels' time is their median: the sweep runs at the host's pace).
+   Each kernel's event time must be below its plain version's and below
+   the event time of the Triton kernel it replaced, as last measured
+   (``TRITON_LAST_MS``): at 401,408 for all three, and on the sweep
+   (the median) for quantize and dequantize;
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
    tensor cores, f32 on them too as three TF32 products of split
@@ -138,7 +140,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the HFA run's last sync, a WAN round.  HFA pushes weights
    uncompressed, so these runs launch no kernel of the table, and the
    ``codec_host_bytes == 0`` gate is the FSA runs' only (under HFA the
-   round is put together on the host).
+   round is put together on the host);
+7. overlap and the launcher — 7a: the flagship LM split by
+   ``make_staged`` at ``build_flagship_lm``'s widths (vocab 8192, d 384,
+   6 heads, 4 layers, d_ff 1536, seq 128, bf16, ``attn_impl="flash"``,
+   an untied head: 13,421,952 parameters): one batch's per-stage
+   gradients against autograd through the same stages built with
+   ``attn_impl="dense"`` (the plain attention) on the same params and
+   tokens, under phase 4's gates (loss within 1e-3 relative, each leaf
+   within 5e-2 relative L2), then ``run_worker_overlapped`` on a 2 × 2 +
+   1 Simulation with P3, FSA, Adam (the LM geo-round's lr, 3e-3), no
+   compression, the torch backend on the
+   card, 8 steps (batch 8): the launch counts, set to 0 just before and
+   read just after, must be exactly 4 workers × 8 steps × 4 layers × 2
+   bf16 flash forwards (the forward walk and each stage's recompute) and
+   × 1 bf16 flash backward, and nothing else; each worker's loss falls
+   and the four workers' final stage params are bitwise equal; steps/s
+   and tokens/s; 7b: ``python -m geomx_tpu_torch.launch`` for every
+   role, each its own process over loopback TCP on a free port span, the
+   kernels built already: the flagship LM (2 × 2 + 1, ``--workload lm
+   --compression mpq --steps 4 --batch 4``, ``GEOMX_MPQ_SIZE_BOUND=
+   100000``) — every process exits 0, each worker prints ``steps=4``,
+   ``n_params=10276224`` and its tokens/s, ``mpq_bsc``, ``mpq_fp16`` and
+   ``wan_tx`` are above 0 and each local server printed DGC update
+   launches above 0, one for each of its MPQ selector's BSC picks (its
+   codec stage's BSC rung, in its own process);
+   then the P3 staged MLP (1 × 1 + 1, ``--p3``): ``pq_overtakes`` above
+   0.  A process still running at its deadline is killed and fails the
+   phase; each process's output is kept in
+   ``chiprun_out/chip_smoke_launch_*.txt``.
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -168,12 +198,19 @@ BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TF32X3_KERNELS = ("flash_fwd", "flash_bwd", "block_attn_fwd")
 SIZES = (1, 4097, 401_408, 50_000_000)
 MAIN_N = 401_408              # largest leaf of the CNN: the main path's size
-# the CUDA codec kernels are also checked at the LM's key sizes (384,
-# 147,456, 3,145,728) and at sizes off a whole byte; offsets in elements
-CODEC_SIZES = tuple(sorted(set(SIZES) | {3, 5, 384, 147_456, 3_145_728}))
+# the CUDA codec kernels are also checked at sizes off a whole byte and
+# at every key size of the flagship LM (lm_key_sizes(), added in
+# check_kernels: 384, 49,152, 147,456, 589,824, 3,145,728 — the launched
+# LM's MPQ sends those above GEOMX_MPQ_SIZE_BOUND to dgc_update); offsets
+# in elements
+CODEC_SIZES = tuple(sorted(set(SIZES) | {3, 5}))
 CODEC_OFFSETS = (1, 2, 3)
 CODEC_TIME_SIZES = (384, MAIN_N, 3_145_728, 50_000_000)
 LM_SWEEPS = 20
+# the sweep runs at the host's pace: its gate reads the median of this
+# many batches of LM_SWEEPS sweeps, so one batch slowed by the host does
+# not decide it
+SWEEP_BATCHES = 5
 THRESHOLD = 0.5
 MOMENTUM = 0.9
 DGC_MOMENTA = (MOMENTUM, 0.0)
@@ -249,6 +286,23 @@ FLASH_ORDERED_RUNS = 3
 HFA_ARGS = ["--hfa", "--hfa-k1", "2", "--hfa-k2", "2", "--steps", "8"]
 ESYNC_ARGS = ["--esync", "--steps", "4"]
 SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
+# phase 7a: the flagship's stage split at build_flagship_lm's widths,
+# with the untied head (8192 x 384) on top of the LM's parameters
+STAGED_WIDTHS = dict(vocab=8192, d_model=384, n_heads=6, n_layers=4,
+                     d_ff=1536, max_seq=128)
+STAGED_PARAMS = 13_421_952
+STAGED_STEPS = 8
+STAGED_BATCH = 8
+# Adam at the LM geo-round's rate (LM_ARGS): the launcher's 0.01
+# (scripts/run_p3.sh) made this LM's loss rise over 8 steps on the card
+STAGED_LR = float(dict(zip(LM_ARGS[0::2], LM_ARGS[1::2]))["--lr"])
+# phase 7b: launched clusters — (parties, workers, launcher flags,
+# deadline in seconds); the LM's MPQ size bound is the JAX acceptance
+# matrix's (GEOMX_MPQ_SIZE_BOUND=100000)
+LAUNCHED = {
+    "lm_mpq": (2, 2, ["--workload", "lm", "--compression", "mpq",
+                      "--steps", "4", "--batch", "4"], 300),
+    "p3": (1, 1, ["--p3", "--steps", "3"], 180)}
 SP_ADAM_STEPS = 3
 
 
@@ -335,7 +389,7 @@ def check_kernels(dev) -> dict:
     from geomx_tpu_torch.ops.kernels import quantize_cuda as C
 
     err = {"quantize_2bit": 0.0, "dequantize_2bit": 0.0, "dgc_update": 0.0}
-    for n in CODEC_SIZES:
+    for n in sorted(set(CODEC_SIZES) | set(lm_key_sizes())):
         g, r = _inputs(n, dev, seed=n)
         for layout in Q.LAYOUTS:
             for off in (0,) + CODEC_OFFSETS:
@@ -564,8 +618,9 @@ def lm_key_sizes() -> list:
 def time_lm_sweep(dev) -> dict:
     """One party's push of the flagship LM through the codec: its 35
     keys in model order, one quantize each, then one dequantize each of
-    the codes; CUDA-event time of a sweep over ``LM_SWEEPS`` sweeps, of
-    the CUDA kernels and of the plain versions."""
+    the codes; CUDA-event time of a sweep, of the CUDA kernels as the
+    median of ``SWEEP_BATCHES`` batches of ``LM_SWEEPS`` sweeps (each
+    batch printed), and of the plain versions over ``LM_SWEEPS``."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
@@ -591,12 +646,16 @@ def time_lm_sweep(dev) -> dict:
             ("dequantize_2bit", (dequant(C), lambda: [
                 Q.dequantize_2bit_ref(p, n, THRESHOLD, lay)
                 for p, n in zip(codes, sizes)]))):
-        ms = _time_ms(sweep, LM_SWEEPS)
+        batches = [_time_ms(sweep, LM_SWEEPS) for _ in range(SWEEP_BATCHES)]
+        ms = float(np.median(batches))
         bound = sum(_bound_ms(name, n)[0] for n in sizes)
-        out[name] = {"ms": ms, "plain_ms": _time_ms(plain, LM_SWEEPS),
+        out[name] = {"ms": ms, "batches_ms": batches,
+                     "plain_ms": _time_ms(plain, LM_SWEEPS),
                      "bound_ms": bound}
         log(f"LM push sweep ({len(sizes)} keys, {sum(sizes)} elements) "
-            f"{name}: cuda {ms:.4f} ms, plain "
+            f"{name}: cuda batches "
+            f"{', '.join(f'{b:.4f}' for b in batches)} ms, median "
+            f"{ms:.4f} ms, plain "
             f"{out[name]['plain_ms']:.4f} ms, bound {bound:.5f} ms")
         _below_gates(f"LM push sweep {name}", ms, out[name]["plain_ms"],
                      TRITON_LAST_SWEEP_MS[name])
@@ -1365,6 +1424,7 @@ def _dyadic_georound(backend: str, compression: str) -> list:
     correct engines agree to the bit.  BSC uses momentum 1/2 and a ratio
     that sends one coordinate per key (tie-free gradients), where exact
     top-k and the host codec's sampled threshold pick the same one."""
+    import dataclasses
     import threading
 
     import torch
@@ -1585,6 +1645,232 @@ def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
 
 
+# ---- phase 7: the staged loop and the launcher ---------------------------
+
+def _staged_lm_loss(logits, tokens):
+    """The LM objective and next-token accuracy, for ``StagedModel``."""
+    from geomx_tpu_torch.models.transformer import token_cross_entropy
+
+    acc = (logits[:, :-1].argmax(-1) == tokens[:, 1:].long()).float().mean()
+    return token_cross_entropy(logits, tokens), acc
+
+
+def check_staged_lm(dev) -> dict:
+    """7a: the flagship LM split by ``make_staged`` (bf16, flash, full
+    widths, untied head) — per-stage gradients of one batch against
+    autograd through the composed stages with dense attention (the
+    plain version of flash) on the same params, under phase 4's bf16
+    gates — then ``run_worker_overlapped`` on a 2 × 2 + 1 P3 Simulation
+    (FSA, Adam at ``STAGED_LR``, no compression, the torch backend on
+    the card) for
+    ``STAGED_STEPS`` steps: exact flash launch counts, each worker's loss
+    falling, the four workers' final stage params bitwise equal."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from geomx_tpu_torch.core.config import Config, Topology
+    from geomx_tpu_torch.data import TokenIterator, synthetic_lm
+    from geomx_tpu_torch.kvstore import Simulation
+    from geomx_tpu_torch.models.transformer import (TransformerConfig,
+                                                    make_staged)
+    from geomx_tpu_torch.overlap import StagedModel, run_worker_overlapped
+
+    cfg = TransformerConfig(**STAGED_WIDTHS, compute_dtype=torch.bfloat16,
+                            attn_impl="flash")
+    fns, params = make_staged(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+    n_params = sum(t.numel() for p in params for t in p.values())
+    assert n_params == STAGED_PARAMS, n_params
+    data = synthetic_lm(n=512, seq=cfg.max_seq, vocab=cfg.vocab, seed=0)
+
+    # per-stage gradients against autograd through the composed stages
+    # of the plain (dense) attention: its params are dropped, the flash
+    # stages' are used
+    dense_fns, _ = make_staged(dataclasses.replace(cfg, attn_impl="dense"),
+                               torch.Generator().manual_seed(0), "cpu")
+    x = torch.as_tensor(data[:STAGED_BATCH], device=dev)
+    model = StagedModel(fns, _staged_lm_loss)
+    logits, residuals = model.forward(params, x)
+    loss, _acc, g_logits = model.loss_and_logit_grad(logits, x)
+    got = {}
+    model.backward(residuals, g_logits, lambda i, g: got.__setitem__(i, g))
+    leaves = [{k: t.detach().requires_grad_(True) for k, t in p.items()}
+              for p in params]
+    h = x
+    for f, p in zip(dense_fns, leaves):
+        h = f(p, h)
+    ref_loss, _ = _staged_lm_loss(h, x)
+    flat = [t for p in leaves for t in p.values()]
+    ref = torch.autograd.grad(ref_loss, flat)
+    ref_loss = ref_loss.detach()
+    names = [f"{i}.{k}" for i, p in enumerate(params) for k in p]
+    rel_loss, rel = _rel_diffs(
+        float(loss), {f"{i}.{k}": got[i][k] for i, p in enumerate(params)
+                      for k in p},
+        float(ref_loss), dict(zip(names, ref)))
+    worst = max(rel, key=rel.get)
+    log(f"staged LM ({n_params} params, bf16, flash): loss "
+        f"{float(loss):.6f} vs composed dense autograd "
+        f"{float(ref_loss):.6f} "
+        f"(rel {rel_loss:.2e}); worst leaf {worst} rel L2 {rel[worst]:.2e}")
+    assert rel_loss < 1e-3, f"staged loss off by {rel_loss:.2e}"
+    assert rel[worst] < 5e-2, f"staged grad {worst} off by {rel[worst]:.2e}"
+    del logits, residuals, g_logits, got, leaves, h, ref
+
+    # the overlapped loop on a P3 Simulation
+    sim = Simulation(Config(
+        topology=Topology(num_parties=2, workers_per_party=2,
+                          num_global_servers=1),
+        enable_p3=True, sync_global_mode=True, merge_backend="torch"))
+    hist, final, errors, stamps = {}, {}, [], []
+    lock = threading.Lock()
+
+    def worker(party, rank, widx):
+        try:
+            kv = sim.worker(party, rank)
+            if party == 0 and rank == 0:
+                kv.set_optimizer({"type": "adam", "lr": STAGED_LR})
+            kv.barrier()
+            cap = {}
+            h = run_worker_overlapped(
+                kv, StagedModel(fns, _staged_lm_loss), params,
+                TokenIterator(data, STAGED_BATCH, widx, 4), STAGED_STEPS,
+                log_fn=(lambda *a: stamps.append(time.perf_counter()))
+                if widx == 0 else None, params_out=cap)
+            with lock:
+                hist[(party, rank)], final[(party, rank)] = h, cap["params"]
+        except BaseException as e:  # raised below, after the join
+            with lock:
+                errors.append(e)
+
+    try:
+        reset_all_launches()
+        threads = [threading.Thread(target=worker, args=(p, r, 2 * p + r),
+                                    daemon=True)
+                   for p in range(2) for r in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        counts = all_launches()
+        assert not any(t.is_alive() for t in threads), "a worker hung"
+        if errors:
+            raise errors[0]
+        stats = [s.stats() for s in sim.local_servers + sim.global_servers]
+    finally:
+        sim.shutdown()
+    for st in stats:
+        assert st["merge_backend"] == "torch" and st["merge_device"] == "cuda"
+    want = {"flash_fwd": 4 * STAGED_STEPS * cfg.n_layers * 2,
+            "flash_bwd": 4 * STAGED_STEPS * cfg.n_layers}
+    log(f"staged LM launches over {STAGED_STEPS} steps: {counts}")
+    for name, n in counts.items():
+        assert n == want.get(name, 0), \
+            f"{name} launched {n} times on the staged path, not " \
+            f"{want.get(name, 0)}"
+    for w, h in sorted(hist.items()):
+        assert len(h) == STAGED_STEPS and all(math.isfinite(l) for l, _ in h)
+        assert h[-1][0] < h[0][0], f"worker {w}'s loss did not fall: {h}"
+    bits = {w: [t.cpu().numpy().tobytes() for p in ps for t in p.values()]
+            for w, ps in final.items()}
+    assert len(bits) == 4 and all(b == bits[(0, 0)] for b in bits.values()), \
+        "the workers' final stage params differ"
+    steady = (len(stamps) - 3) / (stamps[-1] - stamps[2])
+    tokens = steady * 4 * STAGED_BATCH * cfg.max_seq
+    first = [h[0][0] for h in hist.values()]
+    last = [h[-1][0] for h in hist.values()]
+    log(f"staged LM P3 geo-round: {STAGED_STEPS} steps, loss "
+        f"{np.mean(first):.4f} -> {np.mean(last):.4f} (worker 0,0: "
+        f"{', '.join(f'{l:.4f}' for l, _ in hist[(0, 0)])}), {steady:.3f} steps/s "
+        f"steady ({tokens:.0f} tokens/s), {seconds:.2f} s total; workers "
+        "bitwise equal")
+    return {"n_params": n_params, "loss_rel": rel_loss,
+            "grad_rel_l2_worst": [worst, rel[worst]],
+            "steps_per_s": steady, "tokens_per_s": tokens,
+            "seconds": seconds, "loss_first": float(np.mean(first)),
+            "loss_last": float(np.mean(last)), "launches": counts}
+
+
+def _stat(outs: dict, pattern: str, roles=None) -> int:
+    """The sum of an integer exit observable over the roles' outputs."""
+    import re
+
+    return sum(int(m.group(1)) for r, (_, out) in outs.items()
+               if roles is None or r in roles
+               for m in re.finditer(pattern, out))
+
+
+def run_launched_clusters() -> dict:
+    """7b: the launcher, every role its own process over loopback TCP on
+    this card: the flagship LM under MPQ (2 × 2 + 1), then the P3
+    staged MLP (1 × 1 + 1).  The kernels are built already; a child
+    only loads them."""
+    import re
+
+    from geomx_tpu_torch.launch import run_local_cluster
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+
+    assert not C.LIB.stale() and not FK.LIB.stale(), \
+        "a kernel library is not built: a child process would build it"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GEOMX_MPQ_SIZE_BOUND="100000")
+    out = {}
+    for name, (parties, workers, args, deadline) in LAUNCHED.items():
+        t0 = time.perf_counter()
+        outs = run_local_cluster(parties, workers, args, env=env,
+                                 deadline_s=deadline, cwd=root)
+        seconds = time.perf_counter() - t0
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               f"chip_smoke_launch_{name}.txt"), "w") as f:
+            for r, (rc, text) in outs.items():
+                f.write(f"===== {r} rc={rc}\n{text}\n")
+        bad = {r: (rc, text[-1500:]) for r, (rc, text) in outs.items()
+               if rc != 0}
+        assert not bad, f"launched {name}: a process failed or hung: {bad}"
+        workers_out = {r: text for r, (_, text) in outs.items()
+                       if r.startswith("worker")}
+        steps = args[args.index("--steps") + 1]
+        for r, text in workers_out.items():
+            assert f"steps={steps} " in text, f"{r}: {text[-800:]}"
+        rec = {"seconds": seconds, "processes": len(outs)}
+        if name == "lm_mpq":
+            tps = {}
+            for r, text in workers_out.items():
+                assert f"n_params={LM_PARAMS} " in text, text[-800:]
+                tps[r] = float(re.search(r"tokens_per_sec=([\d.]+|nan)",
+                                         text).group(1))
+            local = [r for r in outs if r.startswith("server:")]
+            dgc = {r: _stat(outs, r"dgc_update:(\d+)", [r]) for r in local}
+            rec.update(
+                tokens_per_s_by_worker=tps,
+                tokens_per_s=sum(tps.values()),
+                mpq_bsc=_stat(outs, r"mpq_bsc=(\d+)"),
+                mpq_fp16=_stat(outs, r"mpq_fp16=(\d+)"),
+                wan_tx=_stat(outs, r"wan_tx=(\d+)"),
+                dgc_update_by_server=dgc)
+            for key in ("mpq_bsc", "mpq_fp16", "wan_tx"):
+                assert rec[key] > 0, f"launched lm: {key} = 0"
+            assert all(n > 0 for n in dgc.values()), \
+                f"a local server launched no DGC update: {dgc}"
+            # one DGC update for each key the MPQ selector sent down BSC
+            picks = {r: _stat(outs, r"mpq_bsc=(\d+)", [r]) for r in local}
+            assert dgc == picks, f"DGC launches {dgc} != BSC picks {picks}"
+        else:
+            rec["pq_overtakes"] = _stat(outs, r"pq_overtakes=(\d+)")
+            assert rec["pq_overtakes"] > 0, "the priority queue never " \
+                "reordered a send"
+        log(f"launched {name}: {rec}")
+        out[name] = rec
+    return out
+
+
 # the kernels each main path must launch; a kernel's ``launches`` in the
 # kernel table is the count from the first path that lists it
 PATH_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
@@ -1729,6 +2015,22 @@ def main() -> int:
         geo[path] = run_sync_mode(extra)
         geo[path]["launches"] = all_launches()
         log(f"main-path launches under {path}: {geo[path]['launches']}")
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    staged = check_staged_lm(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 7a done in {time.perf_counter() - t0:.1f} s")
+    launched = run_launched_clusters()
+    log(f"phase 7b done in {time.perf_counter() - t0:.1f} s")
+    # every path's launches by kernel; the launched LM's DGC updates ran
+    # in the local servers' processes, which printed them
+    path_launches = {path: rec["launches"] for path, rec in geo.items()}
+    path_launches.update(sp=sp["launches"],
+                         f32_flash=f32_step["flash"]["launches"],
+                         f32_sp_ring=f32_step["sp_ring"]["launches"],
+                         staged_lm=staged["launches"])
+    path_launches["launched_lm_mpq_local_servers"] = {"dgc_update": sum(
+        launched["lm_mpq"]["dgc_update_by_server"].values())}
     # the block kernels' main paths are the sequence-parallel steps of
     # phases 4b (bf16) and 4c (f32)
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
@@ -1787,13 +2089,16 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "launches_by_path": {p: c[name] for p, c in path_launches.items()
+                                 if c.get(name)},
             **where})
     report = {"nvidia_smi": smi, "kernels": rows, "build_s": build_s,
               "times_by_size": {str(n): v for n, v in times.items()},
               "lm_push_sweep": sweep,
               "flash": flash, "block": block, "full_width_step": full,
               "sp_step": sp, "f32_step": f32_step,
-              "georound": geo, "seconds": time.perf_counter() - t0}
+              "georound": geo, "staged_lm": staged, "launched": launched,
+              "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

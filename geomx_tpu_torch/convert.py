@@ -23,12 +23,18 @@ The flagship transformer (:func:`flax_lm_to_torch`,
 "ln_f", "layers": [{...}, ...]}`` and the port's ordered dict share
 every shape, so conversion only renames along the key path
 (``layers.0.wq``) and orders the leaves as JAX's ``tree_flatten`` does.
+
+The flagship's stages for the overlap loop (:func:`flax_staged_to_torch`,
+:func:`torch_staged_to_flax`): the JAX ``make_staged`` stage list (a
+list of flat dicts with numpy leaves) and the port's list of ordered
+dicts share every key name and shape; each stage keeps its keys, in
+sorted (``tree_flatten``) order.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -115,3 +121,18 @@ def torch_lm_to_flax(params: Dict[str, torch.Tensor]) -> dict:
             tree[name] = a
     tree["layers"] = [layers[i] for i in range(len(layers))]
     return tree
+
+
+def flax_staged_to_torch(stages: List[dict], device=None
+                         ) -> "List[OrderedDict[str, torch.Tensor]]":
+    """JAX ``make_staged`` stage params (numpy leaves) → the port's
+    stage dicts, each in sorted key order."""
+    return [flax_lm_to_torch(dict(s), device) for s in stages]
+
+
+def torch_staged_to_flax(stages: List[Dict[str, torch.Tensor]]
+                         ) -> List[dict]:
+    """The port's stage dicts → JAX ``make_staged`` stage params with
+    numpy leaves."""
+    return [{n: t.detach().float().cpu().numpy().copy()
+             for n, t in s.items()} for s in stages]

@@ -23,7 +23,9 @@ parallel per ``sp_attn``: ring attention (``attn_impl="flash"`` puts
 each hop's block on the hand block-attention kernel) or Ulysses.  The
 mesh is single-controller (:mod:`geomx_tpu_torch.parallel.mesh`): its
 ranks may share one card, or the CPU.  ``remat`` recomputes each layer
-in the backward (``torch.utils.checkpoint``).  Not yet ported, and
+in the backward (``torch.utils.checkpoint``).  :func:`make_staged`
+splits the model into stages with an untied head for the P3 overlap
+loop (:mod:`geomx_tpu_torch.overlap`).  Not yet ported, and
 refused rather than run differently: the mesh's ``dp`` and ``tp`` axes
 (ROADMAP A11) and MoE layers (A9).
 """
@@ -80,7 +82,8 @@ class TransformerConfig:
 def _refuse_unported(cfg: TransformerConfig) -> None:
     if cfg.moe_every > 0:
         raise NotImplementedError(
-            "MoE layers (moe_every > 0) are not ported yet")
+            "MoE layers (moe_every > 0) are not ported yet (ROADMAP "
+            "queue A item 5)")
 
 
 def _sp_size(mesh) -> int:
@@ -241,6 +244,58 @@ def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
         return (logits, aux_total) if return_aux else logits
 
     return apply
+
+
+def make_staged(cfg: TransformerConfig, generator: torch.Generator,
+                device=None):
+    """The flagship split for the P3-overlap worker loop
+    (:mod:`geomx_tpu_torch.overlap`): stage 0 = embedding(+pos), one
+    stage per transformer layer (single-device attention per
+    ``cfg.attn_impl``), final stage = ln_f + an UNTIED LM head
+    ``[d_model, vocab]``.  The head must be untied because tied
+    embeddings would place one tensor in two stages, breaking per-stage
+    push/pull ownership.
+
+    Params are :func:`init_params`' draws from ``generator``, then the
+    head's (normal / sqrt(d_model)), placed on ``device`` (CUDA unless
+    ``"cpu"``).
+    Each stage's dict is in sorted key order (the JAX package's
+    ``tree_flatten`` order).  Returns ``(stage_fns, stage_params)`` ready
+    for ``overlap.StagedModel`` / ``run_worker_overlapped``.  MoE layers
+    are refused (not ported yet)."""
+    _refuse_unported(cfg)
+    dev = resolve_device(device)
+    params = init_params(cfg, generator)
+    head = (torch.randn((cfg.d_model, cfg.vocab), generator=generator)
+            / math.sqrt(cfg.d_model))
+    cd = cfg.compute_dtype
+
+    def embed_fn(p, tokens):
+        tokens = tokens.long()
+        x = p["embed"][tokens].to(cd)
+        return x + p["pos"][:tokens.shape[1]][None].to(cd)
+
+    def layer_fn(p, x, i=0):
+        return _layer_forward(
+            cfg, i, p, x,
+            lambda q, k, v: _single_device_attention(cfg, q, k, v))[0]
+
+    def head_fn(p, x):
+        x = _rms_norm(x, p["ln_f"])
+        return torch.einsum("btd,dv->btv", x, p["head"].to(cd)).float()
+
+    def stage(**leaves):
+        return OrderedDict((n, leaves[n].to(dev)) for n in sorted(leaves))
+
+    stage_fns = [embed_fn]
+    stage_params = [stage(embed=params["embed"], pos=params["pos"])]
+    for i in range(cfg.n_layers):
+        stage_fns.append(lambda p, x, i=i: layer_fn(p, x, i))
+        stage_params.append(stage(**{n: params[f"layers.{i}.{n}"]
+                                     for n in LAYER_KEYS}))
+    stage_fns.append(head_fn)
+    stage_params.append(stage(ln_f=params["ln_f"], head=head))
+    return stage_fns, stage_params
 
 
 def token_cross_entropy(logits: torch.Tensor, tokens: torch.Tensor

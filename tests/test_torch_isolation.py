@@ -79,7 +79,12 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
     from geomx_tpu_torch.kvstore.torch_backend import TorchBackend
     from geomx_tpu_torch.models import create_model_state
     from geomx_tpu_torch.models.cnn import create_cnn_state
+    from geomx_tpu_torch.models.transformer import (TransformerConfig,
+                                                    make_staged)
     from geomx_tpu_torch.training import load_params
+
+    tiny = TransformerConfig(vocab=16, d_model=8, n_heads=2, n_layers=1,
+                             d_ff=16, max_seq=4)
 
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
@@ -89,7 +94,8 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
                  lambda: main(["--steps", "1"]),
                  lambda: main(["--steps", "1", "--hfa"]),
                  lambda: main(["--steps", "1", "--esync"]),
-                 lambda: load_params("no-such-file.pt")):
+                 lambda: load_params("no-such-file.pt"),
+                 lambda: make_staged(tiny, torch.Generator())):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the default Config resolves to the torch backend on CUDA: the
@@ -102,3 +108,30 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
     assert create_cnn_state(seed=0, device="cpu")[1]["Conv_0.bias"].device \
         == torch.device("cpu")
     assert TorchBackend(None, device="cpu").device.type == "cpu"
+    assert make_staged(tiny, torch.Generator(), "cpu")[1][0]["embed"] \
+        .device == torch.device("cpu")
+
+
+def test_launcher_roles_raise_without_cuda_unless_cpu(no_cuda):
+    """Without CUDA a launched worker raises unless ``--device cpu``, a
+    server unless its merge backend is ``numpy`` or ``torch:cpu``; both
+    before binding a socket.  Schedulers never need the card."""
+    from argparse import Namespace
+
+    from geomx_tpu_torch.core.config import Config, NodeId, Topology
+    from geomx_tpu_torch.launch import _check_device, main
+
+    for role in ("worker:0@p0", "server:0@p0", "global_server:0"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--role", role, "--base-port", "1"])
+    topo = Topology(num_parties=1, workers_per_party=1)
+    for role, backend, device in (
+            ("worker:0@p0", "auto", "cpu"),
+            ("server:0@p0", "numpy", None),
+            ("server:0@p0", "torch:cpu", None),
+            ("global_server:0", "numpy", None),
+            ("scheduler:0@p0", "auto", None),
+            ("global_scheduler:0", "auto", None)):
+        _check_device(NodeId.parse(role),
+                      Config(topology=topo, merge_backend=backend),
+                      Namespace(device=device))
