@@ -168,7 +168,39 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    then the P3 staged MLP (1 × 1 + 1, ``--p3``): ``pq_overtakes`` above
    0.  A process still running at its deadline is killed and fails the
    phase; each process's output is kept in
-   ``chiprun_out/chip_smoke_launch_*.txt``.
+   ``chiprun_out/chip_smoke_launch_*.txt``;
+8. MoE, the zoo, int8 and the parity harness — 8a: the MoE flagship
+   (``build_flagship_lm`` under ``GEOMX_LM_MOE_EXPERTS=4``: top-2 MoE on
+   layers 1 and 3, 17,357,184 parameters in 37 keys, capacity 80 a
+   group of 128 tokens), one batch (8 × 128): f32 dense attention on the
+   card against the same on the CPU from the same params (loss within
+   1e-4 relative, each leaf within 1e-3 relative L2, TF32 off), then
+   bf16 flash against bf16 dense on the card (1e-3, 5e-2); each pair
+   with the reference run's expert choices replayed in the other (top-k
+   routing is discontinuous: a last-bit change moves a token to another
+   expert and its gradient with it), and a freely routed run beside it
+   whose loss holds the same loss gate and whose moved routing
+   decisions and capacity drops are printed; 8b: the same model through
+   ``examples/lm.py --moe-top-k 2 --experts 4`` (2 × 2 + 1, FSA, Adam
+   3e-3, 2bit, bf16 flash, batch 8, 8 steps): exactly 128 bf16 flash
+   forwards and backwards, 592 quantize and 592 dequantize launches (37
+   keys × 2 local servers a step), WAN bytes the 37 keys' frames (2-bit
+   codes up, f32 weights down, the f32 init) plus at most
+   ``WAN_META_MAX`` bytes of meta a message, every worker's loss
+   falling, steps/s and tokens/s; 8c: the five zoo families at the JAX
+   package's default widths (28 × 28 × 1, batch 32, f32) on the card
+   against the CPU from the same params (loss 1e-4, each leaf 1e-3
+   relative L2) and a finite bf16 step, then ``examples/cnn.py --model
+   resnet --compression bsc`` (2 × 2 + 1, 6 steps): exactly one DGC
+   update per key per party a step, every worker's loss falling; 8d:
+   the zoo MLP trained 30 SGD steps, ``quantize_dense_tree`` +
+   ``make_quantized_mlp_apply`` on the card at batch 32 and 5 bitwise
+   equal to the CPU's, f32 and int8 accuracy printed; 8e:
+   ``run_parity_matrix(steps=20)`` over vanilla, fp16, 2bit, bsc and mpq
+   on the card and on the CPU: no config errors, WAN bytes equal (bsc
+   and mpq, whose BSC count follows a sampled threshold, within 5 %),
+   the codec kernels launched in 2bit, bsc and mpq, each delta against
+   vanilla printed.
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -304,6 +336,35 @@ LAUNCHED = {
                       "--steps", "4", "--batch", "4"], 300),
     "p3": (1, 1, ["--p3", "--steps", "3"], 180)}
 SP_ADAM_STEPS = 3
+# phase 8a-b: the MoE flagship — build_flagship_lm's widths under
+# GEOMX_LM_MOE_EXPERTS=4 (top-2 MoE on layers 1 and 3), and the same
+# model through examples/lm.py for the geo-round
+MOE_ENV = {"GEOMX_LM_MOE_EXPERTS": "4", "GEOMX_LM_MOE_TOP_K": "2"}
+MOE_PARAMS = 17_357_184
+MOE_KEYS = 37
+MOE_CAPACITY = 80              # ceil(128 tokens × 2 × 1.25 / 4) a group
+MOE_BATCH = 8
+MOE_F32_LOSS_TOL = 1e-4        # card against CPU, f32, TF32 off
+MOE_F32_GRAD_TOL = 1e-3
+MOE_LM_ARGS = LM_ARGS + ["--moe-top-k", "2", "--experts", "4"]
+# a WAN message's meta (64 bytes and its pickled header) is ~367 bytes
+# for the LM's keys (CPU runs of examples/lm.py and PR 10's 87,373,600
+# bytes a step for the 35-key LM); the gate bounds it at this
+WAN_META_MAX = 512
+# phase 8c-e
+ZOO_FAMILIES = ("mlp", "vgg", "mobilenet", "squeezenet", "resnet")
+ZOO_BATCH = 32
+ZOO_STEPS = 6
+INT8_BATCHES = (32, 5)         # 5: fewer rows than torch._int_mm takes
+PARITY_STEPS = 20
+PARITY_NAMES = ("vanilla", "fp16", "2bit", "bsc", "mpq")
+# configs whose frames hold a count that follows the values (BSC's
+# sampled threshold): their WAN bytes are held within a relative bound
+PARITY_VALUE_SIZED = ("bsc", "mpq")
+PARITY_BSC_BYTES_RTOL = 0.05
+# the table's kernels each parity config must launch
+PARITY_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
+                  "bsc": ("dgc_update",), "mpq": ("dgc_update",)}
 
 
 def log(msg: str) -> None:
@@ -1604,23 +1665,29 @@ def run_sync_mode(extra: list) -> dict:
             "global_opt_device_ms": g["opt_device_ms"]}
 
 
-def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
-    """The flagship LM through ``geomx_tpu_torch.examples.lm``."""
+def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS,
+                    n_params: int = LM_PARAMS, keep_params: bool = False,
+                    make_iter=None) -> dict:
+    """The flagship LM through ``geomx_tpu_torch.examples.lm``
+    (``keep_params``: the record also holds the final ``params`` and the
+    ``cfg``; ``make_iter``: the workers' batches, as ``train`` takes
+    it)."""
     import torch
 
     from geomx_tpu_torch.examples.lm import build_parser, train
 
     args = build_parser().parse_args(argv)
     stamps = []
-    out = train(args, log=lambda msg: stamps.append(time.perf_counter()))
+    out = train(args, log=lambda msg: stamps.append(time.perf_counter()),
+                make_iter=make_iter)
     losses = [l for h in out["histories"].values() for l, _ in h]
     assert len(losses) == 4 * steps, "a worker did not finish its steps"
     assert all(math.isfinite(x) for x in losses), "non-finite loss"
-    assert out["n_params"] == LM_PARAMS, out["n_params"]
+    assert out["n_params"] == n_params, out["n_params"]
     params = out["params"]
     assert params is not None and all(t.is_cuda for t in params.values()), \
         "final weights are not on the card"
-    assert sum(t.numel() for t in params.values()) == LM_PARAMS
+    assert sum(t.numel() for t in params.values()) == n_params
     assert all(bool(torch.isfinite(t).all()) for t in params.values())
     for s in out["sim_stats"]["local"] + out["sim_stats"]["global"]:
         assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
@@ -1632,7 +1699,8 @@ def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
     wan = out["wan"]["wan_send_bytes"] / steps
     first = [h[0][0] for h in out["histories"].values()]
     last = [h[-1][0] for h in out["histories"].values()]
-    log(f"geo-round lm 2bit {args.compute_dtype}: {steps} steps, "
+    log(f"geo-round lm{' moe' if args.moe_top_k else ''} "
+        f"{args.compression} {args.compute_dtype}: {steps} steps, "
         f"{out['n_params']} params, loss {np.mean(first):.4f} -> "
         f"{np.mean(last):.4f}, "
         + (f"{steady:.3f} steps/s steady ({steady * tokens_per_step:.0f} "
@@ -1641,6 +1709,11 @@ def run_lm_georound(argv=LM_ARGS, steps: int = LM_STEPS) -> dict:
     return {"steps_per_s": steady,
             "tokens_per_s": steady and steady * tokens_per_step,
             "wan_bytes_per_step": wan, "n_params": out["n_params"],
+            **({"params": params, "cfg": out["cfg"]} if keep_params
+               else {}),
+            "key_sizes": [t.numel() for t in params.values()],
+            "histories": {f"{p},{r}": [l for l, _ in h] for (p, r), h in
+                          sorted(out["histories"].items())},
             "loss_first": float(np.mean(first)),
             "loss_last": float(np.mean(last)), "seconds": out["seconds"]}
 
@@ -1871,6 +1944,397 @@ def run_launched_clusters() -> dict:
     return out
 
 
+# ---- phase 8: MoE, the zoo, int8 and the parity harness ------------------
+
+class _moe_env:
+    """``GEOMX_LM_MOE_EXPERTS`` (and the default top-k) set for the
+    flagship while the block runs, restored after."""
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in MOE_ENV}
+        os.environ.update(MOE_ENV)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _Routes:
+    """Record each MoE layer's expert choices (``parallel.moe.
+    topk_indices``) in call order while the block runs, or replay those
+    of an earlier run (``replay``) in their place, so two runs route
+    every token alike."""
+
+    def __init__(self, replay=None):
+        self.seen, self.replay = [], replay
+
+    def __enter__(self):
+        from geomx_tpu_torch.parallel import moe
+
+        self.real = moe.topk_indices
+
+        def choose(probs, k):
+            if self.replay is None:
+                idx = self.real(probs, k)
+            else:
+                idx = self.replay[len(self.seen)].to(probs.device)
+            self.seen.append(idx.cpu())
+            return idx
+
+        moe.topk_indices = choose
+        return self
+
+    def __exit__(self, *exc):
+        from geomx_tpu_torch.parallel import moe
+
+        moe.topk_indices = self.real
+
+    def dropped(self, n_experts: int, capacity: int) -> list:
+        """Each layer's (token, choice) pairs past capacity."""
+        import torch
+
+        return [int((torch.nn.functional.one_hot(idx, n_experts).sum((1, 2))
+                     - capacity).clamp(min=0).sum()) for idx in self.seen]
+
+
+def _changed(a, b) -> tuple:
+    """(routing decisions that differ between two recorded runs, all)."""
+    return (sum(int((x != y).sum()) for x, y in zip(a.seen, b.seen)),
+            sum(x.numel() for x in a.seen))
+
+
+def check_moe_lm(dev) -> dict:
+    """8a: the MoE flagship (``build_flagship_lm`` under
+    ``GEOMX_LM_MOE_EXPERTS=4``, top-2, layers 1 and 3) at full width.
+    Top-k routing is discontinuous: a change in the last bits of a
+    router logit can move a token to another expert, and that token's
+    gradient with it.  So each comparison replays the reference run's
+    expert choices in the other run (gated: f32 dense attention on the
+    card against the CPU from the same params, loss within 1e-4
+    relative and each leaf within 1e-3 relative L2, TF32 off; bf16 with
+    flash against bf16 with dense attention on the card, phase 4's 1e-3
+    and 5e-2), and a free run beside it counts the decisions that move
+    (printed, its loss held to the same loss gate) and the tokens
+    dropped at capacity."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.models.transformer import make_lm_grad_fn
+    from geomx_tpu_torch.parallel.moe import expert_capacity
+    from geomx_tpu_torch.training import build_flagship_lm
+
+    with _moe_env():
+        cfg, params, n_params, _, data = build_flagship_lm(
+            device=dev, attn_impl="dense")
+    assert n_params == MOE_PARAMS and len(params) == MOE_KEYS, \
+        (n_params, len(params))
+    assert cfg.uses_aux and (cfg.n_experts, cfg.moe_top_k) == (4, 2)
+    cap = expert_capacity(cfg.max_seq, cfg.n_experts, cfg.moe_top_k,
+                          cfg.moe_capacity_factor)
+    assert cap == MOE_CAPACITY, cap
+    tokens = data[:MOE_BATCH]
+    host = {n: t.cpu() for n, t in params.items()}
+
+    def step(c, p, replay=None):
+        with _Routes(replay) as routes:
+            loss, _, grads = make_lm_grad_fn(c)(p, tokens, None)
+        return (float(loss), {n: g.float().cpu() for n, g in grads.items()},
+                routes)
+
+    out = {"n_params": n_params, "keys": len(params), "capacity": cap}
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    bf16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    pairs = {
+        # what: (reference, the run held to it, its free twin, gates)
+        "f32": ((f32, params), (f32, host), MOE_F32_LOSS_TOL,
+                MOE_F32_GRAD_TOL, "card", "CPU"),
+        "bf16": ((dataclasses.replace(bf16, attn_impl="dense"), params),
+                 (dataclasses.replace(bf16, attn_impl="flash"), params),
+                 1e-3, 5e-2, "dense", "flash")}
+    for what, (ref, run, loss_tol, grad_tol, ref_name, run_name) in \
+            pairs.items():
+        lr, gr, rr = step(*ref)
+        lt, gt, rt = step(*run, replay=rr.seen)
+        lfree, _, rfree = step(*run)
+        rel_loss, rel = _rel_diffs(lt, gt, lr, gr)
+        worst = max(rel, key=rel.get)
+        free_rel = abs(lfree - lr) / abs(lr)
+        moved, choices = _changed(rr, rfree)
+        drops = {ref_name: rr.dropped(cfg.n_experts, cap),
+                 run_name: rfree.dropped(cfg.n_experts, cap)}
+        log(f"MoE LM ({n_params} params, {len(params)} keys, capacity "
+            f"{cap}) {what}: {run_name} loss {lt:.6f} against {ref_name} "
+            f"{lr:.6f} on the same routing (rel {rel_loss:.2e}, tol "
+            f"{loss_tol}); worst leaf {worst} rel L2 {rel[worst]:.2e} (tol "
+            f"{grad_tol}); routed freely: loss {lfree:.6f} (rel "
+            f"{free_rel:.2e}), routing decisions that differ {moved} of "
+            f"{choices} ({moved / choices:.4%}); (token, choice) pairs "
+            f"dropped at capacity by layer {drops}")
+        assert math.isfinite(lt) and rel_loss <= loss_tol, \
+            f"MoE {what}: {run_name} loss off {ref_name} by {rel_loss:.2e}"
+        assert rel[worst] <= grad_tol, \
+            f"MoE {what}: grad of {worst} off by {rel[worst]:.2e}"
+        assert free_rel <= loss_tol, \
+            f"MoE {what}: freely routed loss off by {free_rel:.2e}"
+        out[what] = {f"loss_{ref_name}": lr, f"loss_{run_name}": lt,
+                     "rel_loss": rel_loss, "worst_leaf": worst,
+                     "worst_rel_l2": rel[worst], "free_loss": lfree,
+                     "free_rel_loss": free_rel, "routing_changed": moved,
+                     "routing_choices": choices,
+                     "dropped_by_layer": drops}
+        del gr, gt
+    return out
+
+
+def check_moe_georound(compression: str) -> dict:
+    """8b: the MoE flagship through ``examples/lm.py --moe-top-k 2
+    --experts 4`` (2 × 2 + 1, FSA, Adam 3e-3, bf16 flash, batch 8, 8
+    steps): exact flash and codec launches and the WAN bytes of the 37
+    keys' frames.  ``2bit``: the example's data; at the codec's
+    threshold 0.5 no entry crosses in 8 steps, so the weights do not move
+    (printed).  ``none``: every worker on one shared batch, repeated:
+    every worker's loss must fall and every MoE leaf move."""
+    import itertools
+
+    from geomx_tpu_torch.data import synthetic_lm
+    from geomx_tpu_torch.models.transformer import create_lm_state
+
+    argv = [compression if prev == "--compression" else a
+            for prev, a in zip([""] + MOE_LM_ARGS, MOE_LM_ARGS)]
+    make_iter = None
+    if compression == "none":
+        flags = dict(zip(argv[0::2], argv[1::2]))
+        batch = synthetic_lm(n=int(flags["--batch"]), seq=int(flags["--seq"]),
+                             vocab=int(flags["--vocab"]), seed=0)
+        make_iter = lambda widx, num_all: itertools.repeat(  # noqa: E731
+            (batch, batch))
+    reset_all_launches()
+    rec = run_lm_georound(argv, LM_STEPS, MOE_PARAMS, keep_params=True,
+                          make_iter=make_iter)
+    counts = all_launches()
+    final, cfg = rec.pop("params"), rec.pop("cfg")
+    rec["launches"] = counts
+    sizes = rec.pop("key_sizes")
+    assert len(sizes) == MOE_KEYS, len(sizes)
+    codec = 2 * MOE_KEYS * LM_STEPS if compression == "2bit" else 0
+    want = {"flash_fwd": 4 * LM_STEPS * 4, "flash_bwd": 4 * LM_STEPS * 4,
+            "quantize_2bit": codec, "dequantize_2bit": codec}
+    log(f"main-path launches under moe_lm {compression}: {counts} (want "
+        f"{want})")
+    for name, n in want.items():
+        assert counts[name] == n, \
+            f"{name} launched {counts[name]} times on the MoE LM " \
+            f"({compression}), not {n}"
+    # each party's local server sends every key's f32 weights up once
+    # (init), then a step sends its push up (2-bit codes, or f32) and the
+    # global server its f32 weights down, once a party; every message
+    # adds its meta (64 bytes and the pickled header)
+    n = sum(sizes)
+    up = sum(-(-k // 4) for k in sizes) if compression == "2bit" else 4 * n
+    total = round(rec["wan_bytes_per_step"] * LM_STEPS)
+    frames = 2 * 4 * n + LM_STEPS * 2 * (up + 4 * n)
+    messages = 2 * MOE_KEYS * (LM_STEPS + 1)
+    meta = total - frames
+    log(f"MoE LM {compression} WAN bytes in {LM_STEPS} steps {total}: the "
+        f"37 keys' frames {frames} ({up} bytes up and {4 * n} down a party "
+        f"a step, the f32 init) + message meta {meta} "
+        f"({meta / messages:.1f} a message of {messages})")
+    assert 0 < meta <= messages * WAN_META_MAX, \
+        f"MoE LM WAN bytes are not the 37 keys' frames: meta {meta}"
+    init, _ = create_lm_state(cfg, seed=0, device=final["embed"].device)
+    moved = {k: int((final[k] != init[k]).sum()) for k in final}
+    moe_moved = {k: v for k, v in moved.items()
+                 if k.rsplit(".", 1)[-1] in ("router", "we1", "we2")}
+    log(f"MoE LM {compression}: losses by worker {rec['histories']}; "
+        f"entries moved {sum(moved.values())} of {n}, in the MoE leaves "
+        f"{moe_moved}")
+    if compression == "none":
+        for w, h in rec["histories"].items():
+            assert h[-1] < h[0], f"MoE LM worker {w}'s loss did not fall"
+        assert all(moe_moved.values()), \
+            f"an MoE leaf did not move: {moe_moved}"
+    rec.update(wan_bytes=total, frames_bytes=frames, meta_bytes=meta,
+               entries_moved=sum(moved.values()), moe_entries_moved=moe_moved)
+    return rec
+
+
+def check_zoo(dev) -> dict:
+    """8c: the five zoo families at the JAX package's default widths,
+    28 × 28 × 1, batch 32: one f32 step on the card against the CPU from
+    the same params (loss within 1e-4 relative, each leaf within 1e-3
+    relative L2) and a finite bf16 step on the card."""
+    import torch
+
+    from geomx_tpu_torch.data import synthetic_classification
+    from geomx_tpu_torch.models import create_model_state
+
+    x, y = synthetic_classification(n=ZOO_BATCH, seed=0)
+    out = {}
+    for name in ZOO_FAMILIES:
+        model, params, grad_fn = create_model_state(
+            name, 0, input_shape=(1, 28, 28, 1), compute_dtype=torch.float32,
+            device=dev)
+        n_params = sum(t.numel() for t in params.values())
+        lc, _, gc = grad_fn(params, x, y)
+        lh, _, gh = grad_fn({n: t.cpu() for n, t in params.items()}, x, y)
+        rel_loss, rel = _rel_diffs(float(lc), {n: g.cpu()
+                                               for n, g in gc.items()},
+                                   float(lh), gh)
+        worst = max(rel, key=rel.get)
+        model16, _, grad16 = create_model_state(name, 0, device=dev)
+        l16, _, g16 = grad16(params, x, y)
+        finite = bool(torch.isfinite(l16)) and all(
+            bool(torch.isfinite(g).all()) for g in g16.values())
+        log(f"zoo {name} ({n_params} params, {len(params)} keys) f32: card "
+            f"loss {float(lc):.6f} CPU {float(lh):.6f} (rel "
+            f"{rel_loss:.2e}); worst leaf {worst} rel L2 {rel[worst]:.2e}; "
+            f"bf16 loss {float(l16):.6f}, finite {finite}")
+        assert rel_loss <= 1e-4, f"zoo {name}: loss off by {rel_loss:.2e}"
+        assert rel[worst] <= 1e-3, \
+            f"zoo {name}: grad of {worst} off by {rel[worst]:.2e}"
+        assert finite, f"zoo {name}: the bf16 step is not finite"
+        out[name] = {"n_params": n_params, "keys": len(params),
+                     "loss_card": float(lc), "loss_cpu": float(lh),
+                     "rel_loss": rel_loss, "worst_leaf": worst,
+                     "worst_rel_l2": rel[worst], "bf16_loss": float(l16)}
+    return out
+
+
+def run_zoo_georound() -> dict:
+    """8c: ``examples/cnn.py --model resnet --compression bsc`` (2 × 2 +
+    1, FSA, Adam, batch 32, the torch backend on the card): the DGC
+    update once per key per party a step (every key a BSC pick), every
+    worker's loss falling."""
+    from geomx_tpu_torch.examples.cnn import build_parser, train
+
+    reset_all_launches()
+    args = build_parser().parse_args(
+        ["--parties", "2", "--workers", "2", "--global-servers", "1",
+         "--model", "resnet", "--steps", str(ZOO_STEPS), "--batch", "32",
+         "--optimizer", "adam", "--lr", "0.001", "--compression", "bsc",
+         "--bsc-ratio", "0.01", "--seed", "0"])
+    out = train(args, log=lambda msg: None)
+    counts = all_launches()
+    keys = len(out["params"])
+    want = 2 * keys * ZOO_STEPS
+    hist = {f"{p},{r}": [l for l, _ in h]
+            for (p, r), h in sorted(out["histories"].items())}
+    wan = out["wan"]["wan_send_bytes"] / ZOO_STEPS
+    log(f"geo-round resnet bsc: {ZOO_STEPS} steps, {keys} keys, loss by "
+        f"worker {hist}, {out['seconds']:.2f} s, WAN bytes/step {wan:.0f}; "
+        f"launches {counts} (DGC want {want})")
+    assert counts["dgc_update"] == want, \
+        f"dgc_update launched {counts['dgc_update']} times, not {want}"
+    for s in out["sim_stats"]["local"] + out["sim_stats"]["global"]:
+        assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
+    for w, h in hist.items():
+        assert all(math.isfinite(v) for v in h) and h[-1] < h[0], \
+            f"resnet worker {w}'s loss did not fall: {h}"
+    return {"launches": counts, "keys": keys, "histories": hist,
+            "wan_bytes_per_step": wan, "seconds": out["seconds"]}
+
+
+def check_int8(dev) -> dict:
+    """8d: the zoo MLP trained 30 SGD steps on the card, quantized by
+    ``quantize_dense_tree`` and run through ``make_quantized_mlp_apply``
+    on the card at batch 32 and at batch 5 (the padded ``torch._int_mm``
+    path): bitwise equal to the same on the CPU; the f32 model's and
+    the int8 model's accuracy side by side."""
+    import torch
+
+    from geomx_tpu_torch.data import synthetic_classification
+    from geomx_tpu_torch.models import create_model_state
+    from geomx_tpu_torch.ops.int8 import (make_quantized_mlp_apply,
+                                          quantize_dense_tree)
+
+    model, params, grad_fn = create_model_state(
+        "mlp", 0, compute_dtype=torch.float32, device=dev)
+    x, y = synthetic_classification(n=512, seed=0)
+    for i in range(30):
+        _, _, grads = grad_fn(params, x[:128], y[:128])
+        params = {k: v - 0.1 * grads[k] for k, v in params.items()}
+    q_apply = make_quantized_mlp_apply()
+    q_card = quantize_dense_tree(params)
+    q_cpu = quantize_dense_tree({k: v.cpu() for k, v in params.items()})
+    out = {}
+    for batch in INT8_BATCHES:
+        xb = x[:batch]
+        got = q_apply(q_card, torch.as_tensor(xb, device=dev)).cpu()
+        want = q_apply(q_cpu, torch.from_numpy(xb))
+        same = got.numpy().tobytes() == want.numpy().tobytes()
+        log(f"int8 MLP batch {batch}: card logits bitwise equal to the "
+            f"CPU's: {same}")
+        assert same, f"int8 MLP at batch {batch}: card and CPU differ"
+        out[f"batch_{batch}_bitwise"] = same
+    xs = torch.as_tensor(x, device=dev)
+    with torch.no_grad():
+        fp = float((model.apply(params, xs).argmax(-1).cpu().numpy()
+                    == y).mean())
+    q = float((q_apply(q_card, xs).argmax(-1).cpu().numpy() == y).mean())
+    log(f"int8 MLP accuracy on 512 synthetic samples: f32 {fp:.4f}, "
+        f"int8 {q:.4f}")
+    out.update(f32_accuracy=fp, int8_accuracy=q)
+    return out
+
+
+def check_parity(dev) -> dict:
+    """8e: ``run_parity_matrix`` (``PARITY_STEPS`` steps, the configs of
+    ``PARITY_NAMES``) on the card and on the CPU: no config errors; WAN
+    bytes equal where the frames' sizes do not depend on values, within
+    ``PARITY_BSC_BYTES_RTOL`` where BSC's sampled threshold picks a
+    value-dependent count; the codec kernels launched in each config
+    that compresses through them; each delta against vanilla printed."""
+    from geomx_tpu_torch.utils import parity
+
+    real = parity.run_parity_config
+    by_config = {}
+
+    def counted(name, **kw):
+        before = all_launches()
+        try:
+            return real(name, **kw)
+        finally:
+            after = all_launches()
+            by_config[name] = {k: after[k] - before[k] for k in after}
+
+    reset_all_launches()
+    parity.run_parity_config = counted
+    try:
+        card = parity.run_parity_matrix(steps=PARITY_STEPS,
+                                        names=list(PARITY_NAMES), device=dev)
+    finally:
+        parity.run_parity_config = real
+    counts = all_launches()
+    host = parity.run_parity_matrix(steps=PARITY_STEPS,
+                                    names=list(PARITY_NAMES), device="cpu")
+    for name in PARITY_NAMES:
+        c, h = card[name], host[name]
+        log(f"parity {name}: card {c}; CPU wan_send_bytes "
+            f"{h.get('wan_send_bytes')}, final_accuracy "
+            f"{h.get('final_accuracy')}; launches "
+            f"{ {k: v for k, v in by_config[name].items() if v} }")
+        assert "error" not in c and "error" not in h, (name, c, h)
+        assert c["steps"] == h["steps"] == PARITY_STEPS, (name, c, h)
+        if name in PARITY_VALUE_SIZED:
+            rel = abs(c["wan_send_bytes"] / h["wan_send_bytes"] - 1)
+            assert rel <= PARITY_BSC_BYTES_RTOL, \
+                f"parity {name}: WAN bytes card {c['wan_send_bytes']} CPU " \
+                f"{h['wan_send_bytes']}"
+        else:
+            assert c["wan_send_bytes"] == h["wan_send_bytes"], \
+                f"parity {name}: WAN bytes card {c['wan_send_bytes']} CPU " \
+                f"{h['wan_send_bytes']}"
+        for kernel in PARITY_KERNELS.get(name, ()):
+            assert by_config[name][kernel] > 0, \
+                f"parity {name}: {kernel} was not launched"
+    return {"card": card, "cpu": host, "launches": counts,
+            "launches_by_config": by_config}
+
+
 # the kernels each main path must launch; a kernel's ``launches`` in the
 # kernel table is the count from the first path that lists it
 PATH_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
@@ -2022,6 +2486,19 @@ def main() -> int:
     log(f"phase 7a done in {time.perf_counter() - t0:.1f} s")
     launched = run_launched_clusters()
     log(f"phase 7b done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    moe = check_moe_lm(dev)
+    log(f"phase 8a done in {time.perf_counter() - t0:.1f} s")
+    moe["georound"] = check_moe_georound("2bit")
+    moe["georound_none"] = check_moe_georound("none")
+    log(f"phase 8b done in {time.perf_counter() - t0:.1f} s")
+    zoo = check_zoo(dev)
+    zoo["georound"] = run_zoo_georound()
+    log(f"phase 8c done in {time.perf_counter() - t0:.1f} s")
+    int8 = check_int8(dev)
+    log(f"phase 8d done in {time.perf_counter() - t0:.1f} s")
+    par = check_parity(dev)
+    log(f"phase 8e done in {time.perf_counter() - t0:.1f} s")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -2031,6 +2508,10 @@ def main() -> int:
                          staged_lm=staged["launches"])
     path_launches["launched_lm_mpq_local_servers"] = {"dgc_update": sum(
         launched["lm_mpq"]["dgc_update_by_server"].values())}
+    path_launches.update(moe_lm=moe["georound"]["launches"],
+                         moe_lm_none=moe["georound_none"]["launches"],
+                         zoo_resnet_bsc=zoo["georound"]["launches"],
+                         parity=par["launches"])
     # the block kernels' main paths are the sequence-parallel steps of
     # phases 4b (bf16) and 4c (f32)
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
@@ -2098,6 +2579,7 @@ def main() -> int:
               "flash": flash, "block": block, "full_width_step": full,
               "sp_step": sp, "f32_step": f32_step,
               "georound": geo, "staged_lm": staged, "launched": launched,
+              "moe_lm": moe, "zoo": zoo, "int8": int8, "parity": par,
               "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,6 +1,10 @@
 """Carry model weights between the JAX package and the port.
 
-The CNN (:func:`flax_to_torch`, :func:`torch_to_flax`):
+The CNN (:func:`flax_to_torch`, :func:`torch_to_flax`), and the zoo and
+ResNet (:func:`flax_zoo_to_torch`, :func:`torch_zoo_to_flax`: the same
+rules on nested module names, ``model.flatten`` naming the Dense that
+reads flattened features, and GroupNorm's ``scale`` and ``bias`` kept
+as they are):
 
 The JAX side is a flax parameter tree held as numpy
 (``{"params": {"Conv_0": {"bias", "kernel"}, …}}``); the port side an
@@ -45,48 +49,85 @@ FLATTEN_DENSE = "Dense_0"
 FLATTEN_CHW = (64, 7, 7)
 
 
+def _flat_rows(k: np.ndarray, chw, to_chw: bool) -> np.ndarray:
+    """Permute a Dense kernel's input rows between flax's (h, w, c)
+    flatten order and the port's (c, h, w)."""
+    c, h, wd = chw
+    if to_chw:
+        return (k.reshape(h, wd, c, -1).transpose(2, 0, 1, 3)
+                .reshape(c * h * wd, -1))
+    return k.reshape(c, h, wd, -1).transpose(1, 2, 0, 3).reshape(c * h * wd,
+                                                                 -1)
+
+
+def flax_zoo_to_torch(flax_params: dict, flatten=None, device=None
+                      ) -> "OrderedDict[str, torch.Tensor]":
+    """A flax CNN, zoo or ResNet param tree (numpy leaves, modules nested
+    as flax nests them) → the port's ordered params: each path joined
+    with dots, in ``tree_flatten`` order; a ``kernel`` becomes
+    ``weight`` in torch's layout (HWIO → OIHW, ``[in, out]`` →
+    ``[out, in]``); ``bias`` and GroupNorm's ``scale`` stay as they are.
+    ``flatten`` (a model's ``flatten``: the Dense reading flattened
+    conv features and their ``(C, H, W)``) permutes that kernel's rows."""
+    out = OrderedDict()
+
+    def walk(prefix, node):
+        for key in sorted(node):
+            val = node[key]
+            if isinstance(val, dict):
+                walk(f"{prefix}{key}.", val)
+                continue
+            a = np.asarray(val, np.float32)
+            if key != "kernel":
+                out[prefix + key] = a
+                continue
+            mod = prefix[:-1]
+            if a.ndim == 4:                      # HWIO → OIHW
+                a = a.transpose(3, 2, 0, 1)
+            else:                                # [in, out] → [out, in]
+                if flatten is not None and mod == flatten[0]:
+                    a = _flat_rows(a, flatten[1], to_chw=True)
+                a = a.T
+            out[f"{mod}.weight"] = a
+
+    walk("", flax_params.get("params", flax_params))
+    dev = device if device is not None else "cpu"
+    return OrderedDict((n, torch.from_numpy(np.array(v, np.float32)).to(dev))
+                       for n, v in out.items())
+
+
+def torch_zoo_to_flax(params: Dict[str, torch.Tensor], flatten=None) -> dict:
+    """The port's CNN, zoo or ResNet params → the flax param tree with
+    numpy leaves (the inverse of :func:`flax_zoo_to_torch`)."""
+    tree: dict = {}
+    for name, t in params.items():
+        *mods, kind = name.split(".")
+        a = t.detach().float().cpu().numpy()
+        if kind == "weight":
+            kind = "kernel"
+            if a.ndim == 4:                      # OIHW → HWIO
+                a = a.transpose(2, 3, 1, 0)
+            else:
+                a = a.T
+                if flatten is not None and ".".join(mods) == flatten[0]:
+                    a = _flat_rows(a, flatten[1], to_chw=False)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[kind] = np.ascontiguousarray(a).copy()
+    return {"params": tree}
+
+
 def flax_to_torch(flax_params: dict, device=None
                   ) -> "OrderedDict[str, torch.Tensor]":
     """flax CNN params (numpy leaves) → the port's ordered params."""
-    tree = flax_params.get("params", flax_params)
-    out = OrderedDict()
-    for mod in sorted(tree):
-        leaves = tree[mod]
-        out[f"{mod}.bias"] = np.asarray(leaves["bias"], np.float32)
-        k = np.asarray(leaves["kernel"], np.float32)
-        if k.ndim == 4:                      # HWIO → OIHW
-            w = k.transpose(3, 2, 0, 1)
-        else:                                # [in, out] → [out, in]
-            if mod == FLATTEN_DENSE:
-                c, h, wd = FLATTEN_CHW
-                k = (k.reshape(h, wd, c, -1).transpose(2, 0, 1, 3)
-                     .reshape(c * h * wd, -1))
-            w = k.T
-        out[f"{mod}.weight"] = w
-    return OrderedDict((n, torch.from_numpy(np.array(v, np.float32))
-                        .to(device if device is not None else "cpu"))
-                       for n, v in out.items())
+    return flax_zoo_to_torch(flax_params, (FLATTEN_DENSE, FLATTEN_CHW),
+                             device)
 
 
 def torch_to_flax(params: Dict[str, torch.Tensor]) -> dict:
     """The port's params → a flax CNN param tree with numpy leaves."""
-    tree: dict = {}
-    for name, t in params.items():
-        mod, kind = name.rsplit(".", 1)
-        a = t.detach().float().cpu().numpy()
-        if kind == "bias":
-            tree.setdefault(mod, {})["bias"] = a.copy()
-            continue
-        if a.ndim == 4:                      # OIHW → HWIO
-            k = a.transpose(2, 3, 1, 0)
-        else:
-            k = a.T
-            if mod == FLATTEN_DENSE:
-                c, h, wd = FLATTEN_CHW
-                k = (k.reshape(c, h, wd, -1).transpose(1, 2, 0, 3)
-                     .reshape(c * h * wd, -1))
-        tree.setdefault(mod, {})["kernel"] = np.ascontiguousarray(k)
-    return {"params": tree}
+    return torch_zoo_to_flax(params, (FLATTEN_DENSE, FLATTEN_CHW))
 
 
 def flax_lm_to_torch(tree: dict, device=None

@@ -7,13 +7,15 @@ over the in-proc fabric, one thread per worker.  Worker compute, the
 merge lanes, the global optimizer and the WAN codec stage run on
 ``--device`` (CUDA unless ``--device cpu``); ``--attn-impl flash`` runs
 attention on the hand CUDA flash-attention kernels, 2-bit and BSC push
-compression the CUDA C++ codec kernels.  MoE layers (``--moe-top-k``) are
-not ported yet and raise.
+compression the CUDA C++ codec kernels.  ``--moe-top-k K`` makes every
+2nd layer a top-k routed MoE of ``--experts`` experts, trained with the
+load-balancing aux loss.
 
 Examples:
     python -m geomx_tpu_torch.examples.lm --parties 2 --workers 2 --steps 20
     python -m geomx_tpu_torch.examples.lm --attn-impl flash \\
         --compute-dtype bfloat16 --compression 2bit
+    python -m geomx_tpu_torch.examples.lm --moe-top-k 2 --experts 4
     python -m geomx_tpu_torch.examples.lm --device cpu --steps 3
 """
 
@@ -41,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--heads", type=int, default=4)
     ap.add_argument("--d-ff", type=int, default=256)
     ap.add_argument("--moe-top-k", type=int, default=0,
-                    help=">0 asks for top-k MoE layers (not ported yet)")
+                    help=">0 turns every 2nd layer into a top-k routed "
+                         "MoE (parallel/moe.py)")
     ap.add_argument("--experts", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adam",
@@ -63,10 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def train(args, log=print) -> dict:
+def train(args, log=print, make_iter=None) -> dict:
     """Run one training job; returns ``{"histories", "params",
-    "n_params", "sim_stats", "wan", "seconds"}``.  The Simulation is
-    shut down before returning."""
+    "n_params", "cfg", "sim_stats", "wan", "seconds"}`` (``cfg``: the
+    ``TransformerConfig`` trained).  ``make_iter(widx, num_workers)``
+    replaces each worker's batches (default: its shard of the synthetic
+    token chain).  The Simulation is shut down before returning."""
     import torch
 
     from geomx_tpu_torch.core.platform import resolve_device
@@ -87,14 +92,16 @@ def train(args, log=print) -> dict:
     params, grad_fn = create_lm_state(mcfg, seed=args.seed, device=dev)
     tokens = synthetic_lm(n=2048, seq=args.seq, vocab=args.vocab,
                           seed=args.seed)
+    if make_iter is None:
+        def make_iter(widx, num_all):
+            return TokenIterator(tokens, args.batch, widx, num_all,
+                                 seed=args.seed)
     out = run_georound(
-        args, dev, params, grad_fn,
-        lambda widx, num_all: TokenIterator(tokens, args.batch, widx,
-                                            num_all, seed=args.seed),
-        log, fsa=args.sync == "fsa",
+        args, dev, params, grad_fn, make_iter, log, fsa=args.sync == "fsa",
         step_log_fmt="step {step:4d}  loss {loss:.4f}  next-tok acc "
                      "{acc:.3f}")
     out["n_params"] = sum(t.numel() for t in params.values())
+    out["cfg"] = mcfg
     return out
 
 

@@ -31,8 +31,12 @@ class CNN(nn.Module):
         self.compute_dtype = compute_dtype
         self.Conv_0 = nn.Conv2d(in_channels, 32, 3, padding=1)
         self.Conv_1 = nn.Conv2d(32, 64, 3, padding=1)
-        flat = 64 * (spatial[0] // 4) * (spatial[1] // 4)
-        self.Dense_0 = nn.Linear(flat, 128)
+        chw = (64, spatial[0] // 4, spatial[1] // 4)
+        # the Dense reading the flattened features and their (C, H, W):
+        # convert.py permutes its rows between flax's NHWC flatten order
+        # and this NCHW one
+        self.flatten = ("Dense_0", chw)
+        self.Dense_0 = nn.Linear(chw[0] * chw[1] * chw[2], 128)
         self.Dense_1 = nn.Linear(128, 64)
         self.Dense_2 = nn.Linear(64, num_classes)
 

@@ -12,7 +12,8 @@ Parameters keep the JAX shapes and einsum subscripts (``wq`` ``[D,H,Dh]``,
 ``wo`` ``[H,Dh,D]``, ``w1`` ``[D,F]``, ``embed`` ``[V,D]`` …) and live in
 an ordered dict whose names follow the key path (``layers.0.wq``) and
 whose order is JAX's ``tree_flatten`` order — dict keys sorted, list
-order kept: ``embed``, each layer's ``ln1, ln2, w1, w2, wk, wo, wq, wv``,
+order kept: ``embed``, each layer's ``ln1, ln2, w1, w2, wk, wo, wq, wv``
+(a MoE layer's ``ln1, ln2, router, we1, we2, wk, wo, wq, wv``),
 ``ln_f``, ``pos`` — so kv key ids agree between the packages.
 
 Single-device attention per ``attn_impl``: ``dense`` (all-f32),
@@ -25,15 +26,24 @@ mesh is single-controller (:mod:`geomx_tpu_torch.parallel.mesh`): its
 ranks may share one card, or the CPU.  ``remat`` recomputes each layer
 in the backward (``torch.utils.checkpoint``).  :func:`make_staged`
 splits the model into stages with an untied head for the P3 overlap
-loop (:mod:`geomx_tpu_torch.overlap`).  Not yet ported, and
-refused rather than run differently: the mesh's ``dp`` and ``tp`` axes
-(ROADMAP A11) and MoE layers (A9).
+loop (:mod:`geomx_tpu_torch.overlap`).
+
+MoE layers (``moe_every > 0``: every Nth layer) replace the MLP's
+``w1, w2`` with ``router [D,E], we1 [E,D,F], we2 [E,F,D]``:
+``moe_top_k = 0`` is dense routing (every expert computes, combined by
+the router's softmax), ``moe_top_k > 0`` GShard-style top-k dispatch
+with capacity (:mod:`geomx_tpu_torch.parallel.moe`), whose
+load-balancing aux loss :func:`make_apply` returns with
+``return_aux=True`` and :func:`make_lm_grad_fn` adds at
+``AUX_COEF``.  Not yet ported, and refused rather than run differently:
+the mesh's ``dp`` and ``tp`` axes (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
@@ -45,12 +55,15 @@ from torch.utils.checkpoint import checkpoint
 
 from geomx_tpu_torch.core.platform import resolve_device
 from geomx_tpu_torch.ops.flash_attention import flash_attention
+from geomx_tpu_torch.parallel.moe import moe_ffn_topk
 from geomx_tpu_torch.parallel.ring_attention import (
     dense_attention, fast_dense_attention, ring_attention)
 from geomx_tpu_torch.parallel.ulysses import ulysses_attention
 
 AUX_COEF = 0.01  # MoE load-balancing aux weight (the JAX package's)
 LAYER_KEYS = ("ln1", "ln2", "w1", "w2", "wk", "wo", "wq", "wv")
+MOE_LAYER_KEYS = ("ln1", "ln2", "router", "we1", "we2", "wk", "wo", "wq",
+                  "wv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +76,7 @@ class TransformerConfig:
     max_seq: int = 512
     moe_every: int = 0       # every Nth layer is MoE (0 = none)
     n_experts: int = 4
-    moe_top_k: int = 0
+    moe_top_k: int = 0       # 0 = dense routing; k > 0 = top-k dispatch
     moe_capacity_factor: float = 1.25
     compute_dtype: torch.dtype = torch.bfloat16
     sp_attn: str = "ring"    # "ring" | "ulysses" (mesh with sp > 1 only)
@@ -78,12 +91,14 @@ class TransformerConfig:
     def is_moe(self, layer: int) -> bool:
         return self.moe_every > 0 and (layer + 1) % self.moe_every == 0
 
+    def layer_keys(self, layer: int) -> tuple:
+        """The layer's parameter names, sorted (``tree_flatten`` order)."""
+        return MOE_LAYER_KEYS if self.is_moe(layer) else LAYER_KEYS
 
-def _refuse_unported(cfg: TransformerConfig) -> None:
-    if cfg.moe_every > 0:
-        raise NotImplementedError(
-            "MoE layers (moe_every > 0) are not ported yet (ROADMAP "
-            "queue A item 5)")
+    @property
+    def uses_aux(self) -> bool:
+        """Top-k MoE layers, whose training adds the aux loss."""
+        return self.moe_every > 0 and self.moe_top_k > 0
 
 
 def _sp_size(mesh) -> int:
@@ -134,12 +149,14 @@ def _sp_attention(cfg: TransformerConfig, mesh, q, k, v):
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> "OrderedDict[str, torch.Tensor]":
     """The JAX package's shapes and scales — normal draws times
-    ``1/sqrt(fan_in)`` (``0.02`` for the embeddings, ``1/sqrt(D)`` for
-    ``wo``, ``1/sqrt(F)`` for ``w2``), ones for the norms — drawn on the
-    CPU from ``generator`` and placed on ``device`` (default CPU), in
+    ``1/sqrt(shape[0])`` (the fan-in; for a MoE layer's ``we1`` the
+    expert count, as the JAX package draws it; ``0.02`` for the
+    embeddings and a MoE layer's ``router``, ``1/sqrt(D)`` for ``wo``,
+    ``1/sqrt(F)`` for ``w2`` and ``we2``), ones for the norms — drawn on
+    the CPU from ``generator`` and placed on ``device`` (default CPU), in
     flatten order."""
-    _refuse_unported(cfg)
     H, Dh, D, Fd = cfg.n_heads, cfg.head_dim, cfg.d_model, cfg.d_ff
+    E = cfg.n_experts
 
     def dense(shape, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
@@ -154,10 +171,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             "wq": dense((D, H, Dh)), "wk": dense((D, H, Dh)),
             "wv": dense((D, H, Dh)),
             "wo": dense((H, Dh, D), scale=1.0 / math.sqrt(D)),
-            "w1": dense((D, Fd)),
-            "w2": dense((Fd, D), scale=1.0 / math.sqrt(Fd)),
         }
-        for name in LAYER_KEYS:
+        if cfg.is_moe(i):
+            layer["we1"] = dense((E, D, Fd))
+            layer["we2"] = dense((E, Fd, D), scale=1.0 / math.sqrt(Fd))
+            layer["router"] = dense((D, E), scale=0.02)
+        else:
+            layer["w1"] = dense((D, Fd))
+            layer["w2"] = dense((Fd, D), scale=1.0 / math.sqrt(Fd))
+        for name in cfg.layer_keys(i):
             out[f"layers.{i}.{name}"] = layer[name]
     out["ln_f"] = torch.ones(D)
     out["pos"] = pos
@@ -184,7 +206,8 @@ def _single_device_attention(cfg: TransformerConfig, q, k, v):
 
 def _layer_forward(cfg: TransformerConfig, i: int, layer: Dict, x,
                    attn_op: Callable):
-    """One block (attention + MLP residual); returns ``(x, aux)``."""
+    """One block (attention + MLP or MoE residual); returns ``(x, aux)``,
+    ``aux`` the top-k MoE layer's load-balancing loss (else 0)."""
     cd = cfg.compute_dtype
     h = _rms_norm(x, layer["ln1"])
     q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(cd))
@@ -193,22 +216,45 @@ def _layer_forward(cfg: TransformerConfig, i: int, layer: Dict, x,
     a = attn_op(q, k, v)
     x = x + torch.einsum("bthk,hkd->btd", a, layer["wo"].to(cd))
     h = _rms_norm(x, layer["ln2"])
-    # jax.nn.gelu defaults to the tanh approximation
-    up = F.gelu(torch.einsum("btd,df->btf", h, layer["w1"].to(cd)),
-                approximate="tanh")
-    x = x + torch.einsum("btf,fd->btd", up, layer["w2"].to(cd))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_moe(i) and cfg.moe_top_k > 0:
+        # top-k routing with capacity, the batch as the groups
+        y, aux = moe_ffn_topk(h, layer["router"], layer["we1"],
+                              layer["we2"], k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              compute_dtype=cd)
+        x = x + y
+    elif cfg.is_moe(i):
+        # dense routing: every expert computes, combined by the router
+        gates = torch.softmax(torch.einsum("btd,de->bte", h.float(),
+                                           layer["router"]), dim=-1).to(cd)
+        up = F.gelu(torch.einsum("btd,edf->btef", h, layer["we1"].to(cd)),
+                    approximate="tanh")
+        down = torch.einsum("btef,efd->bted", up, layer["we2"].to(cd))
+        x = x + torch.einsum("bted,bte->btd", down, gates)
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        up = F.gelu(torch.einsum("btd,df->btf", h, layer["w1"].to(cd)),
+                    approximate="tanh")
+        x = x + torch.einsum("btf,fd->btd", up, layer["w2"].to(cd))
+    return x, aux
 
 
 def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
     """The forward ``apply(params, tokens [B, T] int) -> logits [B, T, V]
-    f32`` (``(logits, aux)`` with ``return_aux``).  ``params`` is keyed
-    like :func:`init_params`.  With a ``mesh`` (naming ``dp``, ``sp``
-    and ``tp``) whose ``sp`` is larger than 1, attention runs sequence
-    parallel over it; ``sp == 1`` is the single-device path.  Raises
-    NotImplementedError on ``dp``/``tp`` larger than 1 and on MoE
-    layers."""
-    _refuse_unported(cfg)
+    f32`` (``(logits, aux)`` with ``return_aux``, ``aux`` the MoE
+    load-balancing loss summed over layers, 0 without top-k MoE).
+    ``params`` is keyed like :func:`init_params`.  With a ``mesh``
+    (naming ``dp``, ``sp`` and ``tp``) whose ``sp`` is larger than 1,
+    attention runs sequence parallel over it; ``sp == 1`` is the
+    single-device path.  Raises NotImplementedError on ``dp``/``tp``
+    larger than 1.  Training top-k MoE through the logits-only form
+    drops the load-balancing aux, so that warns, as JAX's does."""
+    if cfg.uses_aux and not return_aux:
+        warnings.warn(
+            "make_apply(return_aux=False) with top-k MoE discards the "
+            "load-balancing aux loss; use return_aux=True + "
+            "lm_loss_with_aux for training", stacklevel=2)
     if cfg.sp_attn not in ("ring", "ulysses"):
         raise ValueError(
             f"sp_attn must be 'ring' or 'ulysses', got {cfg.sp_attn!r}")
@@ -229,7 +275,8 @@ def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
         x = x + params["pos"][:T][None].to(cd)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
-            layer = {n: params[f"layers.{i}.{n}"] for n in LAYER_KEYS}
+            layer = {n: params[f"layers.{i}.{n}"]
+                     for n in cfg.layer_keys(i)}
             if cfg.remat:
                 # recompute the layer in the backward, as jax.checkpoint
                 x, aux = checkpoint(layer_fn, layer, x, i,
@@ -261,9 +308,15 @@ def make_staged(cfg: TransformerConfig, generator: torch.Generator,
     ``"cpu"``).
     Each stage's dict is in sorted key order (the JAX package's
     ``tree_flatten`` order).  Returns ``(stage_fns, stage_params)`` ready
-    for ``overlap.StagedModel`` / ``run_worker_overlapped``.  MoE layers
-    are refused (not ported yet)."""
-    _refuse_unported(cfg)
+    for ``overlap.StagedModel`` / ``run_worker_overlapped``.  Top-k MoE
+    is refused with the JAX package's ValueError (the staged loss has no
+    aux channel); dense-routing MoE layers are stages like any other."""
+    if cfg.uses_aux:
+        # the staged loop has no channel for the MoE aux loss; dropping
+        # it silently would train top-k routers without load balancing
+        raise ValueError("make_staged supports dense-routing MoE only "
+                         "(moe_top_k must be 0): the staged loss has no "
+                         "aux-loss channel")
     dev = resolve_device(device)
     params = init_params(cfg, generator)
     head = (torch.randn((cfg.d_model, cfg.vocab), generator=generator)
@@ -292,7 +345,7 @@ def make_staged(cfg: TransformerConfig, generator: torch.Generator,
     for i in range(cfg.n_layers):
         stage_fns.append(lambda p, x, i=i: layer_fn(p, x, i))
         stage_params.append(stage(**{n: params[f"layers.{i}.{n}"]
-                                     for n in LAYER_KEYS}))
+                                     for n in cfg.layer_keys(i)}))
     stage_fns.append(head_fn)
     stage_params.append(stage(ln_f=params["ln_f"], head=head))
     return stage_fns, stage_params
@@ -311,20 +364,32 @@ def lm_loss(apply_fn: Callable, params, tokens) -> torch.Tensor:
     return token_cross_entropy(apply_fn(params, tokens), tokens)
 
 
+def lm_loss_with_aux(apply_fn: Callable, params, tokens,
+                     aux_coef: float = AUX_COEF) -> torch.Tensor:
+    """LM loss + MoE load-balancing aux.  ``apply_fn`` must come from
+    ``make_apply(..., return_aux=True)``."""
+    logits, aux = apply_fn(params, tokens)
+    return token_cross_entropy(logits, tokens) + aux_coef * aux
+
+
 def make_lm_grad_fn(cfg: TransformerConfig, mesh=None) -> Callable:
     """``grad_fn(params, x, y) -> (loss, acc, grads)`` with the worker
     loop's signature (``training.run_worker``); ``y`` is ignored (the LM
     objective shifts ``x``).  ``x`` may be a numpy array; it moves to
-    the parameters' device.  ``mesh`` as in :func:`make_apply`.  Safe to
-    call from several worker threads at once (pure in ``params``)."""
-    apply_fn = make_apply(cfg, mesh)
+    the parameters' device.  ``mesh`` as in :func:`make_apply`.  Top-k
+    MoE configs train with the load-balancing aux folded in
+    (``AUX_COEF * aux``), as the JAX package's.  Safe to call from
+    several worker threads at once (pure in ``params``)."""
+    use_aux = cfg.uses_aux
+    apply_fn = make_apply(cfg, mesh, return_aux=use_aux)
 
     def grad_fn(params: Dict[str, torch.Tensor], x, _y=None):
         dev = next(iter(params.values())).device
         x = torch.as_tensor(np.asarray(x), device=dev).long()
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        logits = apply_fn(p, x)
-        loss = token_cross_entropy(logits, x)
+        out = apply_fn(p, x)
+        logits, aux = out if use_aux else (out, 0.0)
+        loss = token_cross_entropy(logits, x) + AUX_COEF * aux
         acc = (logits[:, :-1].argmax(-1) == x[:, 1:]).float().mean()
         grads = torch.autograd.grad(loss, list(p.values()))
         return loss.detach(), acc.detach(), dict(zip(p, grads))

@@ -421,8 +421,10 @@ def build_flagship_lm(device=None, attn_impl: str = "fast"):
     4 layers, d_ff 1536, seq 128: 10,276,224 f32 parameters), bf16
     compute, on ``device`` (CUDA unless ``"cpu"``).  Returns ``(cfg,
     params, n_params, grad_fn, data)``; ``data`` is 512 synthetic token
-    sequences.  ``GEOMX_LM_MOE_EXPERTS > 0`` asks for MoE layers, which
-    are not ported yet and raise NotImplementedError."""
+    sequences.  ``GEOMX_LM_MOE_EXPERTS > 0`` makes every 2nd layer a
+    top-k MoE with that many experts (``GEOMX_LM_MOE_TOP_K``, default 2,
+    clamped to the expert count): 17,357,184 parameters at 4 experts,
+    trained with the load-balancing aux."""
     import os
 
     from geomx_tpu_torch.data import synthetic_lm

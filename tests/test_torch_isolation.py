@@ -112,6 +112,42 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
         .device == torch.device("cpu")
 
 
+def test_zoo_moe_int8_and_parity_entry_points_raise_without_cuda(
+        no_cuda, monkeypatch):
+    """The zoo's and ResNet's factories (directly and by name), the MoE
+    flagship, the LM example's MoE flags and the parity harness raise
+    without CUDA unless given the CPU; the int8 path has no device of
+    its own (it runs where its tensors are)."""
+    from geomx_tpu_torch.examples.lm import main as lm_main
+    from geomx_tpu_torch.models import MODEL_REGISTRY, create_model_state
+    from geomx_tpu_torch.ops import int8
+    from geomx_tpu_torch.training import build_flagship_lm
+    from geomx_tpu_torch.utils import parity
+
+    for var, val in (("MOE_EXPERTS", "4"), ("VOCAB", "16"), ("DMODEL", "8"),
+                     ("HEADS", "2"), ("LAYERS", "2"), ("DFF", "16"),
+                     ("SEQ", "8")):
+        monkeypatch.setenv(f"GEOMX_LM_{var}", val)
+    calls = [lambda f=f: f(0) for f in MODEL_REGISTRY.values()]
+    calls += [lambda n=n: create_model_state(n, 0) for n in MODEL_REGISTRY]
+    calls += [lambda: build_flagship_lm(),
+              lambda: lm_main(["--steps", "1", "--moe-top-k", "2"]),
+              lambda: parity.run_parity_config("vanilla", steps=1),
+              lambda: parity.run_parity_matrix(steps=1, names=["vanilla"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+    for name, factory in MODEL_REGISTRY.items():
+        _, params, _ = factory(0, device="cpu")
+        assert all(t.device.type == "cpu" for t in params.values()), name
+    cfg, params, n, _, _ = build_flagship_lm(device="cpu")
+    assert cfg.uses_aux and params["layers.1.router"].device.type == "cpu"
+    _, mlp, _ = create_model_state("mlp", 0, device="cpu")
+    assert int8.quantize_dense_tree(mlp)["Dense_0.weight"]["q"].device \
+        .type == "cpu"
+
+
 def test_launcher_roles_raise_without_cuda_unless_cpu(no_cuda):
     """Without CUDA a launched worker raises unless ``--device cpu``, a
     server unless its merge backend is ``numpy`` or ``torch:cpu``; both

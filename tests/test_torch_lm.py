@@ -106,9 +106,12 @@ def test_flagship_parameter_count_and_keys(monkeypatch):
     assert cfg.attn_impl == "flash" and cfg.compute_dtype == torch.bfloat16
     assert data.shape == (512, 128) and data.dtype == np.int32
     assert all(t.dtype == torch.float32 for t in params.values())
+    # MoE layers on every 2nd layer, top-k clamped to the expert count
     monkeypatch.setenv("GEOMX_LM_MOE_EXPERTS", "4")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_flagship_lm(device="cpu")
+    monkeypatch.setenv("GEOMX_LM_MOE_TOP_K", "8")
+    cfg, params, n_params, _, _ = build_flagship_lm(device="cpu")
+    assert (n_params, len(params)) == (17_357_184, 37)
+    assert (cfg.moe_every, cfg.moe_top_k) == (2, 4) and cfg.uses_aux
 
 
 def test_convert_round_trip_is_exact(jparams):
@@ -161,8 +164,10 @@ def test_unported_paths_raise():
     for axes in ({"dp": 2, "sp": 2, "tp": 1}, {"dp": 1, "sp": 1, "tp": 2}):
         with pytest.raises(NotImplementedError, match="A11"):
             T.make_apply(cfg, mesh=make_mesh(axes, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.make_apply(T.TransformerConfig(**WIDTHS, moe_every=2))
+    # MoE is ported (tests/test_torch_moe.py): top-k built without the
+    # aux warns, as JAX's does
+    with pytest.warns(UserWarning, match="aux"):
+        T.make_apply(T.TransformerConfig(**WIDTHS, moe_every=2, moe_top_k=2))
     with pytest.raises(ValueError, match="attn_impl"):
         T._single_device_attention(
             T.TransformerConfig(attn_impl="nope"),

@@ -20,7 +20,8 @@ JAX package's, on the CPU in f32.
 - Key ids: each stage dict's key order is JAX's ``tree_flatten`` order,
   and an unsorted stage is refused.
 - ``overlap_vs_bsp_benchmark`` under the JAX test's structural bound;
-  ``make_staged`` refuses MoE layers.
+  ``make_staged`` refuses top-k MoE as JAX's does and stages
+  dense-routing MoE.
 """
 
 from collections import OrderedDict
@@ -324,6 +325,23 @@ def test_overlap_beats_bsp_under_bandwidth():
 
 
 def test_make_staged_refuses_moe():
-    cfg = TransformerConfig(**dict(LM, n_layers=2), moe_every=2)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        make_staged(cfg, torch.Generator().manual_seed(0), "cpu")
+    """Top-k MoE is refused with JAX's ValueError and message (the
+    staged loss has no aux channel); dense-routing MoE layers are stages
+    like any other, their keys in sorted order."""
+    moe = dict(LM, n_layers=2, moe_every=2)
+    with pytest.raises(ValueError) as got:
+        make_staged(TransformerConfig(**moe, moe_top_k=2),
+                    torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError) as want:
+        j_make_staged(JTransformerConfig(**moe, moe_top_k=2),
+                      jax.random.PRNGKey(0))
+    assert str(got.value) == str(want.value)
+    fns, stages = make_staged(TransformerConfig(**moe),
+                              torch.Generator().manual_seed(0), "cpu")
+    assert list(stages[2]) == ["ln1", "ln2", "router", "we1", "we2", "wk",
+                               "wo", "wq", "wv"]
+    x = fns[0](stages[0], torch.zeros(2, LM["max_seq"], dtype=torch.long))
+    for fn, p in zip(fns[1:], stages[1:]):
+        x = fn(p, x)
+    assert x.shape == (2, LM["max_seq"], LM["vocab"])
+    assert bool(torch.isfinite(x).all())

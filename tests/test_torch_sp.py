@@ -13,7 +13,9 @@ atol, as the JAX package's own ring tests hold them); the transformer's
 logits atol 1e-4 and ``lm_loss`` gradients rtol/atol 1e-3 (the two
 libraries sum in other orders; every value is O(1) or below); ``remat``
 changes nothing on the port's side (the same ops run again), so it is
-held to the non-remat run at 1e-6.
+held to the non-remat run at 1e-6.  MoE layers (dense routing and
+top-k) on the ring: logits atol 1e-4, loss rtol 1e-5, gradients
+rtol/atol 1e-3.
 """
 
 import dataclasses
@@ -258,10 +260,49 @@ def test_sp_refusals(lm):
             T.make_apply(cfg, make_mesh(axes, devices=cpu))
     with pytest.raises(ValueError, match="dp, sp and tp"):
         T.make_apply(cfg, make_mesh({"sp": 4}, devices=cpu))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.make_apply(dataclasses.replace(cfg, moe_every=1),
-                     make_mesh(AXES, devices=cpu))
+    # MoE layers are no refusal: the layer forward is shared and the
+    # shards are joined before the FFN (matched to JAX below)
+    moe = dataclasses.replace(cfg, moe_every=1)
+    assert T.make_apply(moe, make_mesh(AXES, devices=cpu))(
+        T.init_params(moe, torch.Generator().manual_seed(0)),
+        torch.from_numpy(tokens).long()).shape == (
+            B, WIDTHS["max_seq"], WIDTHS["vocab"])
     # a sequence the sp axis does not divide
     apply = T.make_apply(cfg, make_mesh(AXES, devices=cpu))
     with pytest.raises(ValueError, match="not divisible"):
         apply(params, torch.from_numpy(tokens[:, :30]).long())
+
+
+@pytest.mark.parametrize("top_k", [0, 2])
+def test_moe_on_the_sp_mesh_matches_jax(meshes, lm, top_k):
+    """MoE layers (dense routing and top-k, the aux folded into the loss)
+    on the sp ring against JAX's ``make_apply(cfg, mesh)``."""
+    moe = dict(moe_every=1, n_experts=4, moe_top_k=top_k)
+    jcfg = JT.TransformerConfig(**WIDTHS, compute_dtype=jnp.float32, **moe)
+    jparams = jax.tree_util.tree_map(
+        np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    _, tokens = lm
+    apply = JT.make_apply(jcfg, meshes[0], return_aux=True)
+
+    def loss(p):
+        logits, aux = apply(p, tokens)
+        return (JT.token_cross_entropy(logits, tokens)
+                + JT.AUX_COEF * aux), logits
+
+    with force_tpu_interpret_mode():
+        (j_loss, j_logits), j_g = jax.jit(jax.value_and_grad(
+            loss, has_aux=True))(jparams)
+    j_grads = flax_lm_to_torch(jax.tree_util.tree_map(np.asarray, j_g))
+    tcfg = T.TransformerConfig(**WIDTHS, compute_dtype=torch.float32, **moe)
+    params = flax_lm_to_torch(jparams)
+    logits, _ = T.make_apply(tcfg, meshes[1], return_aux=True)(
+        params, torch.from_numpy(tokens).long())
+    t_loss, _, grads = T.make_lm_grad_fn(tcfg, meshes[1])(params, tokens)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
+    assert list(grads) == list(j_grads)
+    assert "layers.0.router" in grads
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), j_grads[name].numpy(),
+                                   rtol=1e-3, atol=1e-3, err_msg=name)
