@@ -38,8 +38,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    MFU config), (2,1000,3,64) (a ragged tail), (1,2047,2,128) (T
    not a multiple of the 128-row tile), (1,1500,24,128) (the same on
    the two-warpgroup tiles, which the bf16 kernels take when 128-row
-   tiles fill the SMs), (2,100,3,64) (T below one tile) and (1,1,1,64);
-   tolerance f32 1e-4, bf16 2e-2, each times max(1, largest reference
+   tiles fill the SMs), (2,100,3,64) (T below one tile), (1,1,1,64),
+   and phase 9's mesh shapes (4,128,3,64) (a dp 2 × tp 2 rank),
+   (4,128,6,64) (a dp rank of the party step) and (1,128,6,64) (a
+   pipeline microbatch on a dp rank); tolerance f32 1e-4, bf16 2e-2, each times max(1, largest reference
    entry), and each of o, lse, dq, dk, dv within a relative L2 of f32
    1e-4, bf16 1e-2; in bf16 at Dh 128 the kernel's gradients must lie
    nearer the plain backward (which rounds p and ds*scale where JAX's
@@ -73,7 +75,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (4,512,512,16,128) (the MFU config's hop at sp = 4: the main path),
    (8,32,32,6,64) (the flagship LM's at sp = 4), a ragged
    (2,250,250,3,64), (1,1,1,1,64), and Tq != Tk both ways
-   (2,300,77,3,128), (1,70,400,2,64); ``m``, ``l`` and ``o`` each within
+   (2,300,77,3,128), (1,70,400,2,64), and (4,64,64,3,64) (phase 9's
+   hop of the flagship on dp 2 × sp 2 × tp 2); ``m``, ``l`` and ``o``
+   each within
    f32 1e-4 / bf16 2e-2 times max(1, its largest unmasked reference
    entry) and within a relative L2 of 1e-4 / 1e-2, masked maxima exactly
    -1e30 and the ``l`` of a fully masked row exactly Tk; the ptxas log
@@ -200,7 +204,52 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    on the card and on the CPU: no config errors, WAN bytes equal (bsc
    and mpq, whose BSC count follows a sampled threshold, within 5 %),
    the codec kernels launched in 2bit, bsc and mpq, each delta against
-   vanilla printed.
+   vanilla printed;
+9. multi-device parallelism on single-controller meshes, every rank on
+   the one card (so no figure here measures NVLink or NCCL): 9a, tp / ep
+   — the flagship (``build_flagship_lm``'s widths, bf16) through
+   ``make_lm_grad_fn(cfg, mesh)`` on ``{"dp": 2, "sp": 1, "tp": 2}`` with
+   flash against the single-device dense step (loss 1e-3 relative, each
+   leaf 5e-2 relative L2), exactly dp × tp × L = 16 flash forwards and
+   16 backwards at (4, 128, 3, 64) and nothing else; the same mesh in
+   f32 with dense attention against the single-device f32 step (1e-4,
+   1e-3, no launch); ``{"dp": 2, "sp": 2, "tp": 2}`` with ring flash
+   (exactly 2 × 2 × 4 × 2² = 64 block launches) against dense; the MoE
+   flagship (top-2, 4 experts, 2 a tp rank) on that mesh against
+   single-device bf16 dense on the reference run's routing (replayed
+   per dp rank), beside a freely routed run whose loss holds 1e-3 and
+   whose moved decisions are printed; 3 Adam steps (lr 3e-3) of the tp
+   mesh's gradients on the repeated batch, whose loss must fall; 9b,
+   the pipeline — ``init_pp_transformer`` + ``make_pp_apply`` on
+   ``{"pp": 2, "dp": 2}``, 4 microbatches of batch 8, bf16 flash,
+   against the same weights with no pipeline (dense) under phase 4's
+   gates, exactly dp × M × L = 32 flash forwards and backwards (the
+   schedule skips bubble ticks); then 2 parties, each such a mesh,
+   through the port's Simulation (2 × 1 + 1, FSA, SGD 0.1, the torch
+   backend, 2 rounds): parties bitwise equal, the loss falling, the
+   flash count exact; 9c, dp — ``party_meshes(2, [card] * 4)`` and
+   ``make_party_step(make_lm_grad_fn(cfg))`` at batch 8 against the
+   single-device full batch under phase 4's gates, exactly dp × L = 8
+   flash forwards and backwards; the hips scenario (2 × 1 + 1, FSA,
+   Adam 3e-3, 2bit at 0.05, 3 rounds): exactly 35 keys × 2 parties
+   quantize and dequantize launches a round, the parties bitwise equal,
+   some weights moved;
+   ``make_party_step_quantized`` on the same batch, every gradient block
+   within 2 · A / 254 of the exact step's (A the larger block absmax of
+   the ranks' and the mean's vectors), its int8 wire bytes a step
+   printed beside the f32 ring's (from the shapes);
+   ``quantized_psum_mean`` and ``_ef`` at k = 2 and 4 bitwise equal on
+   the card and the CPU; 9d, the merge backend's mesh rung —
+   ``TorchBackend(devices=[card] * 4)`` exact, int8 and int8 with its
+   residual on JAX's scenarios (5 pushes summed exactly; the int8 error
+   within ``2 k max|p| / 127``; the residual scenario of
+   ``test_device_opt.py`` over 40 rounds, so that the residual crosses
+   a step: within two steps with it, outside two without), each bitwise
+   equal to ``["cpu"] * 4``; then
+   a 2 × 2 + 1 geo-round of the flagship's 35 key shapes on the rung
+   with its residual (the port's default device slots set to 4 on the
+   card, then on the CPU): weights finite and bitwise equal, every
+   server's ``merge_devices`` 4 and each big key holding a residual.
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -257,10 +306,13 @@ CNN_KEYS = 10                 # the CNN's parameter leaves: keys a push
 # flash attention: (B, T, H, Dh) of the flagship LM (the main path),
 # the MFU config, a ragged tail, T off the 128-row tile, T off it with
 # enough (b, h) for the bf16 kernels' two-warpgroup tiles, T below one
-# tile, and one token
+# tile, one token, and phase 9's mesh shapes: a (dp, tp) rank of the
+# dp 2 x tp 2 step, a dp rank of the party step, and a pipeline stage's
+# microbatch on a dp rank of pp 2 x dp 2
 FLASH_SHAPES = ((8, 128, 6, 64), (4, 2048, 16, 128), (2, 1000, 3, 64),
                 (1, 2047, 2, 128), (1, 1500, 24, 128), (2, 100, 3, 64),
-                (1, 1, 1, 64))
+                (1, 1, 1, 64), (4, 128, 3, 64), (4, 128, 6, 64),
+                (1, 128, 6, 64))
 FLASH_MAIN = ((8, 128, 6, 64), "bfloat16")
 FLASH_MFU = ((4, 2048, 16, 128), "bfloat16")   # also in the kernel rows
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -287,10 +339,12 @@ LM_F32_ARGS = [a for flag, val in zip(LM_ARGS[0::2], LM_ARGS[1::2])
                                 "--compute-dtype": "float32"}.get(flag, val))]
 # block attention: (B, Tq, Tk, H, D) of the MFU config's ring hop at
 # sp = 4 (the main path), the flagship LM's at sp = 4, a ragged tail, one
-# token, and Tq != Tk both ways
+# token, Tq != Tk both ways, and phase 9's hop of the flagship on a
+# dp 2 x sp 2 x tp 2 mesh (dense and MoE)
 BLOCK_SHAPES = ((4, 512, 512, 16, 128), (8, 32, 32, 6, 64),
                 (2, 250, 250, 3, 64), (1, 1, 1, 1, 64),
-                (2, 300, 77, 3, 128), (1, 70, 400, 2, 64))
+                (2, 300, 77, 3, 128), (1, 70, 400, 2, 64),
+                (4, 64, 64, 3, 64))
 BLOCK_MAIN = ((4, 512, 512, 16, 128), "bfloat16", "below")
 BLOCK_MAIN_F32 = ((4, 512, 512, 16, 128), "float32", "below")
 # the bf16 kernel at the main shape, "below", must beat its plain version
@@ -365,6 +419,33 @@ PARITY_BSC_BYTES_RTOL = 0.05
 # the table's kernels each parity config must launch
 PARITY_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
                   "bsc": ("dgc_update",), "mpq": ("dgc_update",)}
+# phase 9: meshes whose ranks all live on the one card
+TP_MESH = {"dp": 2, "sp": 1, "tp": 2}
+TP_SP_MESH = {"dp": 2, "sp": 2, "tp": 2}
+TP_BATCH = 8
+TP_ADAM_STEPS = 3
+PP_MESH = {"pp": 2, "dp": 2}
+PP_MICROBATCHES = 4
+PP_BATCH = 8
+PP_HIPS_ROUNDS = 2
+PP_HIPS_LR = 0.1               # the JAX dryrun's pp-hips rate
+DP_PARTIES = 2
+DP_DEVICES = 4                 # party_meshes(2, [card] * 4): 2 ranks each
+DP_HIPS_ROUNDS = 3
+DP_HIPS_THRESHOLD = 0.05       # the JAX acceptance matrix's 2bit value
+QAR_RANKS = (2, 4)
+QAR_N = 1_000_003
+# the int8 party step's bound allows this many f32 ulps of a block's
+# absmax beside its two half steps: the exact step and the int8 one each
+# round their own sums (on an NVIDIA H100 the flagship's worst block
+# reached 0.997 of 2/254)
+QAR_ROUNDING_ULPS = 4
+MERGE_SLOTS = 4
+# rounds of the residual scenario: a slot's residual grows by 0.1 a
+# round against a half step of 1.575, so it first crosses a step in
+# round 16; at 40 the wanted 16.0 lies more than two steps from the 0
+# that the int8 rung gives without its residual
+MERGE_EF_ROUNDS = 40
 
 
 def log(msg: str) -> None:
@@ -1485,14 +1566,10 @@ def _dyadic_georound(backend: str, compression: str) -> list:
     correct engines agree to the bit.  BSC uses momentum 1/2 and a ratio
     that sends one coordinate per key (tie-free gradients), where exact
     top-k and the host codec's sampled threshold pick the same one."""
-    import dataclasses
-    import threading
-
     import torch
 
     from geomx_tpu_torch.core.config import Config, Topology
     from geomx_tpu_torch.kvstore import Simulation
-    from geomx_tpu_torch.training import run_worker
 
     shapes = {"a.bias": (8,), "a.weight": (6, 5)}
     init = {n: torch.from_numpy(
@@ -1515,26 +1592,43 @@ def _dyadic_georound(backend: str, compression: str) -> list:
                                    num_global_servers=1),
                  sync_global_mode=True, merge_backend=backend)
     sim = Simulation(cfg)
-    out = {}
-    errors = []
+
+    def setup(kv, p, r):
+        if r == 0:
+            if p == 0:
+                kv.set_optimizer({"type": "sgd", "lr": 0.25})
+            kv.set_gradient_compression(
+                {"type": compression, "ratio": 0.01, "momentum": 0.5,
+                 "threshold": 0.5})
+        return [((s, 2 * p + r), None) for s in range(3)]
+
+    try:
+        return _fsa_workers(sim, init, grad_fn, setup)
+    finally:
+        sim.shutdown()
+
+
+def _fsa_workers(sim, init: dict, grad_fn, setup) -> list:
+    """Run the 2 × 2 workers of ``sim`` in threads: ``setup(kv, p, r)``
+    configures worker (p, r)'s kvstore and returns its 3 batches, then
+    ``run_worker`` takes 3 steps from ``init``.  Returns the final
+    weights' bytes, which every worker must hold alike."""
+    import threading
+
+    from geomx_tpu_torch.training import run_worker
+
+    out, errors = {}, []
 
     def worker(p, r):
         try:
             kv = sim.worker(p, r)
-            if r == 0:
-                if p == 0:
-                    kv.set_optimizer({"type": "sgd", "lr": 0.25})
-                kv.set_gradient_compression(
-                    {"type": compression, "ratio": 0.01, "momentum": 0.5,
-                     "threshold": 0.5})
+            data = setup(kv, p, r)
             kv.barrier()
-            widx = 2 * p + r
-            data = [((s, widx), None) for s in range(3)]
             res: dict = {}
             run_worker(kv, init, grad_fn, data, 3, params_out=res)
             out[(p, r)] = [t.cpu().numpy().tobytes()
                            for t in res["params"].values()]
-        except BaseException as e:
+        except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
     ts = [threading.Thread(target=worker, args=(p, r), daemon=True)
@@ -1543,7 +1637,6 @@ def _dyadic_georound(backend: str, compression: str) -> list:
         t.start()
     for t in ts:
         t.join()
-    sim.shutdown()
     if errors:
         raise errors[0]
     first = out[(0, 0)]
@@ -2335,6 +2428,588 @@ def check_parity(dev) -> dict:
             "launches_by_config": by_config}
 
 
+# ---- phase 9: multi-device parallelism on single-controller meshes -----
+
+def _launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _held(what: str, loss, grads, ref_loss, ref_grads, loss_tol: float,
+          grad_tol: float) -> dict:
+    """Gate a step against its reference: loss within ``loss_tol``
+    relative, every leaf within ``grad_tol`` relative L2."""
+    rel_loss, rel = _rel_diffs(float(loss), grads, float(ref_loss),
+                               ref_grads)
+    worst = max(rel, key=rel.get)
+    log(f"{what}: loss {float(loss):.6f} against {float(ref_loss):.6f} (rel "
+        f"{rel_loss:.2e}, tol {loss_tol:g}); worst leaf {worst} rel L2 "
+        f"{rel[worst]:.2e} (tol {grad_tol:g})")
+    assert math.isfinite(float(loss)) and rel_loss <= loss_tol, \
+        f"{what}: loss off by {rel_loss:.2e}"
+    assert rel[worst] <= grad_tol, f"{what}: grad of {worst} off by " \
+        f"{rel[worst]:.2e}"
+    return {"loss": float(loss), "rel_loss": rel_loss, "worst_leaf": worst,
+            "worst_rel_l2": rel[worst]}
+
+
+def _counted_step(fn, *args) -> tuple:
+    """``fn(*args)`` with the launch counts set to 0 just before and read
+    just after; returns (result, counts, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, all_launches(), time.perf_counter() - t0
+
+
+def _exact(what: str, counts: dict, want: dict, wall: float) -> None:
+    got = _launched(counts)
+    log(f"{what}: launches {got} (want {want}), wall {wall:.4f} s")
+    assert got == want, f"{what}: launches {got}, not {want}"
+
+
+def check_tp(dev) -> dict:
+    """9a: the flagship at build_flagship_lm's widths on a dp × tp mesh
+    and a dp × sp × tp mesh on the card, against the single-device
+    step; the MoE flagship on the 8-rank mesh; Adam steps on the tp
+    mesh."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.models import transformer as T
+    from geomx_tpu_torch.models.transformer import make_lm_grad_fn
+    from geomx_tpu_torch.parallel import make_mesh
+    from geomx_tpu_torch.training import build_flagship_lm
+
+    cfg, params, n_params, _, data = build_flagship_lm(
+        device=dev, attn_impl="flash")
+    assert n_params == LM_PARAMS, n_params
+    tokens = data[:TP_BATCH]
+    mesh = make_mesh(TP_MESH, devices=[dev] * 4)
+    mesh8 = make_mesh(TP_SP_MESH, devices=[dev] * 8)
+    dp, tp, L = TP_MESH["dp"], TP_MESH["tp"], cfg.n_layers
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    ref_loss, _, ref = make_lm_grad_fn(dense)(params, tokens)
+    out = {"n_params": n_params}
+
+    shapes = []
+    real = T.flash_attention
+    T.flash_attention = lambda q, *a: (shapes.append(tuple(q.shape)),
+                                       real(q, *a))[1]
+    try:
+        (loss, _, grads), counts, wall = _counted_step(
+            make_lm_grad_fn(cfg, mesh), params, tokens)
+    finally:
+        T.flash_attention = real
+    _exact("tp step (flash, dp 2 x tp 2)", counts,
+           {"flash_fwd": dp * tp * L, "flash_bwd": dp * tp * L}, wall)
+    want = (TP_BATCH // dp, cfg.max_seq, cfg.n_heads // tp, cfg.head_dim)
+    log(f"tp step flash shapes {sorted(set(shapes))} (want {want})")
+    assert set(shapes) == {want}, f"tp flash shapes {set(shapes)}"
+    out["tp_flash"] = dict(_held(
+        "tp step bf16 flash on dp 2 x tp 2 against single-device dense",
+        loss, grads, ref_loss, ref, 1e-3, 5e-2), wall_s=wall,
+        launches=counts)
+
+    f32 = dataclasses.replace(dense, compute_dtype=torch.float32)
+    l32, _, g32 = make_lm_grad_fn(f32)(params, tokens)
+    (loss, _, grads), counts, wall = _counted_step(
+        make_lm_grad_fn(f32, mesh), params, tokens)
+    _exact("tp step (f32 dense)", counts, {}, wall)
+    out["tp_f32"] = dict(_held(
+        "tp step f32 dense on dp 2 x tp 2 against single-device f32",
+        loss, grads, l32, g32, F32_STEP_LOSS_TOL, F32_STEP_GRAD_TOL),
+        wall_s=wall)
+    del g32
+
+    ring = dataclasses.replace(cfg, sp_attn="ring")
+    sp = TP_SP_MESH["sp"]
+    (loss, _, grads), counts, wall = _counted_step(
+        make_lm_grad_fn(ring, mesh8), params, tokens)
+    _exact("tp ring step (flash, dp 2 x sp 2 x tp 2)", counts,
+           {"block_attn_fwd": dp * tp * L * sp ** 2}, wall)
+    out["tp_ring"] = dict(_held(
+        "tp ring step bf16 on dp 2 x sp 2 x tp 2 against single-device "
+        "dense", loss, grads, ref_loss, ref, 1e-3, 5e-2), wall_s=wall,
+        launches=counts)
+    del grads, ref
+
+    out["moe"] = _check_tp_moe(dev, mesh8)
+
+    # Adam on the repeated batch, the gradients from the tp mesh
+    p = {n: t.detach().clone() for n, t in params.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=STAGED_LR)
+    grad_fn = make_lm_grad_fn(cfg, mesh)
+    losses = []
+    for _ in range(TP_ADAM_STEPS):
+        loss, _, grads = grad_fn(p, tokens)
+        for n, t in p.items():
+            t.grad = grads[n]
+        opt.step()
+        losses.append(float(loss))
+    log(f"tp Adam steps (lr {STAGED_LR}) on a repeated batch: losses "
+        f"{losses}")
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], \
+        "the tp step's loss did not fall"
+    out["adam_losses"] = losses
+    del p, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _by_layer(seen: list, dp: int) -> list:
+    """A dp mesh's recorded routing (one call a (dp rank, MoE layer), dp
+    rank major) as the single-device run records it: one call a layer,
+    the dp ranks' groups joined."""
+    import torch
+
+    n = len(seen) // dp
+    return [torch.cat([seen[d * n + i] for d in range(dp)])
+            for i in range(n)]
+
+
+def _check_tp_moe(dev, mesh8) -> dict:
+    """The MoE flagship (top-2, 4 experts, 2 a tp rank) on the 8-rank
+    mesh with ring flash, against single-device bf16 dense on the
+    reference run's routing; a freely routed run beside it."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.models.transformer import make_lm_grad_fn
+    from geomx_tpu_torch.training import build_flagship_lm
+
+    with _moe_env():
+        cfg, params, n_params, _, data = build_flagship_lm(
+            device=dev, attn_impl="dense")
+    assert n_params == MOE_PARAMS, n_params
+    tokens = data[:MOE_BATCH]
+    dp = TP_SP_MESH["dp"]
+    with _Routes() as ref_routes:
+        ref_loss, _, ref = make_lm_grad_fn(cfg)(params, tokens)
+    replay = [r[d * (MOE_BATCH // dp):(d + 1) * (MOE_BATCH // dp)]
+              for d in range(dp) for r in ref_routes.seen]
+    run = dataclasses.replace(cfg, attn_impl="flash", sp_attn="ring")
+    fn = make_lm_grad_fn(run, mesh8)
+    with _Routes(replay):
+        (loss, _, grads), counts, wall = _counted_step(fn, params, tokens)
+    L, sp = cfg.n_layers, TP_SP_MESH["sp"]
+    _exact("MoE tp ring step", counts,
+           {"block_attn_fwd": dp * TP_SP_MESH["tp"] * L * sp ** 2}, wall)
+    out = _held("MoE (top-2, 4 experts over tp 2) on dp 2 x sp 2 x tp 2 "
+                "against single-device bf16 dense, the same routing",
+                loss, grads, ref_loss, ref, 1e-3, 5e-2)
+    with _Routes() as free:
+        free_loss = float(fn(params, tokens)[0])
+    free.seen = _by_layer(free.seen, dp)
+    moved, choices = _changed(ref_routes, free)
+    free_rel = abs(free_loss - float(ref_loss)) / abs(float(ref_loss))
+    log(f"MoE tp ring step routed freely: loss {free_loss:.6f} (rel "
+        f"{free_rel:.2e}, tol 1e-3), routing decisions that differ {moved} "
+        f"of {choices} ({moved / choices:.4%})")
+    assert free_rel <= 1e-3, f"MoE tp: freely routed loss off by {free_rel}"
+    out.update(wall_s=wall, launches=counts, free_loss=free_loss,
+               free_rel_loss=free_rel, routing_changed=moved,
+               routing_choices=choices)
+    return out
+
+
+def _hips_rounds(steps: list, params0: dict, rounds: int, optimizer: dict,
+                 compression=None) -> dict:
+    """2 parties × 1 worker + 1 global server (FSA, the torch backend on
+    the card): each round, party p's ``steps[p](params) -> (loss,
+    grads)`` pushes its gradients into the two-tier kvstore and pulls
+    the weights back.  Returns each party's losses and final weights."""
+    import torch
+
+    from geomx_tpu_torch.core.config import Config, Topology
+    from geomx_tpu_torch.kvstore import Simulation
+
+    sim = Simulation(Config(topology=Topology(num_parties=2,
+                                              workers_per_party=1),
+                            merge_backend="torch"))
+    try:
+        kvs = [sim.worker(p, 0) for p in range(2)]
+        names = list(params0)
+        for kv in kvs:
+            for tid, n in enumerate(names):
+                kv.init(tid, params0[n].cpu().numpy())
+            if compression:
+                kv.set_gradient_compression(compression)
+        kvs[0].set_optimizer(optimizer)
+        for kv in kvs:
+            kv.barrier()
+        dev = params0[names[0]].device
+        cur = [params0, params0]
+        losses = [[], []]
+        for _ in range(rounds):
+            for p in range(2):
+                loss, grads = steps[p](cur[p])
+                losses[p].append(float(loss))
+                for tid, n in enumerate(names):
+                    kvs[p].push(tid, grads[n].float().cpu().numpy())
+            for p in range(2):
+                buf = [kvs[p].pull_sync(tid) for tid in range(len(names))]
+                kvs[p].wait_all()
+                cur[p] = {n: torch.from_numpy(np.array(b)).to(dev)
+                          for n, b in zip(names, buf)}
+        stats = [s.stats() for s in sim.local_servers + sim.global_servers]
+    finally:
+        sim.shutdown()
+    for s in stats:
+        assert s["merge_backend"] == "torch" and s["merge_device"] == "cuda"
+    bits = [[t.cpu().numpy().tobytes() for t in c.values()] for c in cur]
+    assert bits[0] == bits[1], "the two parties' weights differ"
+    return {"losses": losses, "final": cur[0]}
+
+
+def check_pp(dev) -> dict:
+    """9b: the pipelined flagship (build_flagship_lm's widths, an untied
+    head) on pp 2 x dp 2, 4 microbatches, against the same weights with
+    no pipeline; then 2 parties of it through the kvstore."""
+    import dataclasses
+
+    import torch
+
+    from geomx_tpu_torch.data import synthetic_lm
+    from geomx_tpu_torch.models.transformer import (TransformerConfig,
+                                                    token_cross_entropy)
+    from geomx_tpu_torch.parallel import make_mesh
+    from geomx_tpu_torch.parallel.pipeline import (init_pp_transformer,
+                                                   make_pp_apply)
+
+    cfg = TransformerConfig(**STAGED_WIDTHS, attn_impl="flash")
+    pp = init_pp_transformer(cfg, torch.Generator().manual_seed(0), dev)
+    n_params = sum(t.numel() for t in pp.values())
+    assert n_params == STAGED_PARAMS, n_params
+    x = torch.as_tensor(synthetic_lm(n=PP_BATCH, seq=cfg.max_seq,
+                                     vocab=cfg.vocab, seed=0),
+                        device=dev).long()
+    mesh = make_mesh(PP_MESH, devices=[dev] * 4)
+
+    def grad_step(apply):
+        def step(p):
+            leaves = {n: t.detach().requires_grad_(True)
+                      for n, t in p.items()}
+            loss = token_cross_entropy(apply(leaves, x), x)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return loss.detach(), dict(zip(leaves, grads))
+        return step
+
+    one = make_mesh({"pp": 1}, devices=[dev])
+    ref_loss, ref = grad_step(make_pp_apply(
+        dataclasses.replace(cfg, attn_impl="dense"), one, 1))(pp)
+    run = grad_step(make_pp_apply(cfg, mesh, PP_MICROBATCHES,
+                                  dp_axis="dp"))
+    (loss, grads), counts, wall = _counted_step(run, pp)
+    n = PP_MESH["dp"] * PP_MICROBATCHES * cfg.n_layers
+    _exact("pp step (pp 2 x dp 2, 4 microbatches, bubbles skipped)",
+           counts, {"flash_fwd": n, "flash_bwd": n}, wall)
+    out = dict(_held("pp step bf16 flash against the same weights with no "
+                     "pipeline (dense)", loss, grads, ref_loss, ref, 1e-3,
+                     5e-2), n_params=n_params, wall_s=wall, launches=counts)
+    del grads, ref
+
+    steps = [grad_step(make_pp_apply(cfg, make_mesh(PP_MESH, [dev] * 4),
+                                     PP_MICROBATCHES, dp_axis="dp"))
+             for _ in range(2)]
+    (hips, counts, wall) = _counted_step(
+        _hips_rounds, steps, pp, PP_HIPS_ROUNDS,
+        {"type": "sgd", "lr": PP_HIPS_LR})
+    first, last = hips["losses"][0][0], hips["losses"][0][-1]
+    log(f"pp-hips: 2 parties x (pp 2 x dp 2) -> the two-tier kvstore, "
+        f"{PP_HIPS_ROUNDS} rounds (SGD {PP_HIPS_LR}), losses "
+        f"{hips['losses']}, parties bitwise equal, {wall:.2f} s")
+    assert last < first, f"pp-hips: loss {first} -> {last} did not fall"
+    _exact("pp-hips", counts, {"flash_fwd": 2 * PP_HIPS_ROUNDS * n,
+                               "flash_bwd": 2 * PP_HIPS_ROUNDS * n}, wall)
+    out["hips"] = {"losses": hips["losses"], "wall_s": wall,
+                   "launches": counts}
+    del hips
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_wire_bytes(n: int, k: int) -> tuple:
+    """(int8 wire bytes, f32 ring all-reduce bytes) that k ranks move
+    between them for one n-element reduction, from the shapes: the
+    all-to-all and the all-gather each carry (k - 1) chunks of int8
+    codes and their f32 block scales to each of the k ranks; a ring
+    all-reduce moves 2 (k - 1) / k of the f32 vector from each rank."""
+    from geomx_tpu_torch.parallel.quantized_allreduce import BLOCK, _chunk
+
+    chunk = _chunk(n, k)
+    return (2 * k * (k - 1) * (chunk + 4 * chunk // BLOCK),
+            2 * (k - 1) * 4 * n)
+
+
+def check_dp(dev) -> dict:
+    """9c: party_meshes(2, [card] * 4) with make_party_step on the
+    flagship; the hips scenario under 2bit; the int8 party step; the
+    quantized all-reduce card against CPU."""
+    import torch
+
+    from geomx_tpu_torch.models.transformer import make_lm_grad_fn
+    from geomx_tpu_torch.parallel import (make_party_step_quantized,
+                                          quantized_psum_mean)
+    from geomx_tpu_torch.parallel.dp import (_per_rank, make_party_step,
+                                             party_meshes)
+    from geomx_tpu_torch.parallel.quantized_allreduce import (
+        BLOCK, quantized_psum_mean_ef)
+    from geomx_tpu_torch.training import build_flagship_lm
+
+    cfg, params, n_params, _, data = build_flagship_lm(
+        device=dev, attn_impl="flash")
+    meshes = party_meshes(DP_PARTIES, [dev] * DP_DEVICES)
+    dp = meshes[0].shape["dp"]
+    grad_fn = make_lm_grad_fn(cfg)
+    tokens = data[:TP_BATCH]
+    ref_loss, _, ref = grad_fn(params, tokens)
+    (loss, _, grads), counts, wall = _counted_step(
+        make_party_step(grad_fn, meshes[0]), params, tokens, tokens)
+    _exact("dp party step (flash, 2 ranks)", counts,
+           {"flash_fwd": dp * cfg.n_layers, "flash_bwd": dp * cfg.n_layers},
+           wall)
+    out = dict(_held("dp party step against the single-device full batch",
+                     loss, grads, ref_loss, ref, 1e-3, 5e-2), wall_s=wall,
+               launches=counts)
+
+    # the hips scenario: each party a dp mesh, the WAN under 2bit
+    batches = [data[p * TP_BATCH:(p + 1) * TP_BATCH]
+               for p in range(DP_PARTIES)]
+    steps = [(lambda cur, s=make_party_step(grad_fn, m), b=b:
+              (lambda r: (r[0], r[2]))(s(cur, b, b)))
+             for m, b in zip(meshes, batches)]
+    hips, counts, wall = _counted_step(
+        _hips_rounds, steps, params, DP_HIPS_ROUNDS,
+        {"type": "adam", "lr": STAGED_LR}, {"type": "2bit",
+                                            "threshold": DP_HIPS_THRESHOLD})
+    keys = len(params)
+    want = {"flash_fwd": DP_HIPS_ROUNDS * DP_PARTIES * dp * cfg.n_layers,
+            "flash_bwd": DP_HIPS_ROUNDS * DP_PARTIES * dp * cfg.n_layers,
+            "quantize_2bit": DP_HIPS_ROUNDS * DP_PARTIES * keys,
+            "dequantize_2bit": DP_HIPS_ROUNDS * DP_PARTIES * keys}
+    moved = sum(int((hips["final"][n] != params[n]).sum()) for n in params)
+    log(f"dp hips: 2 parties x {dp}-rank dp mesh -> two-tier kvstore (FSA, "
+        f"Adam {STAGED_LR}, 2bit at {DP_HIPS_THRESHOLD}), {DP_HIPS_ROUNDS} "
+        f"rounds, losses "
+        f"{hips['losses']}, parties bitwise equal, entries moved {moved} "
+        f"of {n_params}, {wall:.2f} s")
+    _exact(f"dp hips ({keys} keys x {DP_PARTIES} parties a round)", counts,
+           want, wall)
+    assert moved > 0, "dp hips: no 2bit update reached the weights"
+    out["hips"] = {"losses": hips["losses"], "entries_moved": moved,
+                   "wall_s": wall, "launches": counts}
+    del hips
+
+    # the int8 party step on the same batch: within 2 · A / 254 of the
+    # exact step, A the larger block absmax of the ranks' and the mean's
+    # (each leg rounds by at most half a step, A / 254), plus
+    # QAR_ROUNDING_ULPS f32 ulps of A for the two steps' own sums
+    qloss, _, qgrads = make_party_step_quantized(grad_fn, meshes[0])(
+        params, tokens, tokens)
+    names = sorted(grads)
+
+    def blocks(g):
+        v = torch.cat([g[k].reshape(-1).float() for k in names])
+        return torch.nn.functional.pad(v, (0, (-v.numel()) % BLOCK)
+                                       ).reshape(-1, BLOCK)
+
+    ranks = [o[2] for o in _per_rank(grad_fn, meshes[0], params, tokens,
+                                     tokens)[0]]
+    amax = torch.stack([blocks(g).abs().amax(1)
+                        for g in ranks + [grads]]).amax(0)
+    err = (blocks(qgrads) - blocks(grads)).abs().amax(1)
+    ratio = float((err / amax.clamp(min=1e-30)).max())
+    bound = amax * (2 / 254 + QAR_ROUNDING_ULPS * 2.0 ** -23)
+    wire, ring = _int8_wire_bytes(n_params, dp)
+    log(f"dp int8 party step: loss {float(qloss):.6f} (exact "
+        f"{float(loss):.6f}); worst block error {ratio:.7f} of its absmax "
+        f"(bound 2/254 = {2 / 254:.7f} + {QAR_ROUNDING_ULPS} ulps); wire "
+        f"bytes a step {wire} int8 against {ring} f32 (from the shapes, "
+        f"{dp} ranks)")
+    assert bool((err <= bound).all()), \
+        f"int8 party step outside the block bound ({ratio})"
+    assert float(qloss) == float(loss)
+    out["quantized"] = {"loss": float(qloss), "worst_err_over_absmax": ratio,
+                        "wire_bytes_int8": wire, "wire_bytes_f32": ring}
+    del grads, qgrads, ranks, ref
+
+    # the quantized all-reduce, card against CPU, bitwise
+    rng = np.random.default_rng(0)
+    for k in QAR_RANKS:
+        x = rng.standard_normal((k, QAR_N)).astype(np.float32)
+        x[:, ::997] *= 300.0
+        r = (rng.standard_normal((k, QAR_N)) * 0.01).astype(np.float32)
+        got = {}
+        for d in (dev, "cpu"):
+            xs = [torch.from_numpy(a).to(d) for a in x]
+            rs = [torch.from_numpy(a).to(d) for a in r]
+            ef, res = quantized_psum_mean_ef(xs, rs)
+            got[str(d)] = [t.cpu().numpy().tobytes() for t in
+                           quantized_psum_mean(xs) + ef + res]
+        assert got[str(dev)] == got["cpu"], \
+            f"quantized all-reduce at k = {k}: card differs from the CPU"
+        log(f"quantized_psum_mean and _ef at k = {k}, n = {QAR_N}: card "
+            f"bitwise equal to the CPU")
+    out["qar_card_equals_cpu"] = list(QAR_RANKS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _merge_round(be, pushes, key=0):
+    acc = be.seed(pushes[0].copy(), donated=True, key=key)
+    for p in pushes[1:]:
+        acc = be.accumulate(acc, p.copy())
+    return be.materialize(acc).copy()
+
+
+def _lm_rung_georound(backend: str, devices: list, shapes: dict) -> tuple:
+    """2 × 2 + 1 FSA geo-round of the flagship's 35 key shapes (SGD lr
+    1/4, 3 steps) under the int8 mesh rung with its residual, every
+    worker pushing one gradient a step (numpy, from the step's seed), so
+    no slot's contents depend on arrival order; the torch backend's
+    default device slots set to ``devices``.  Returns (the weights'
+    bytes, the servers' stats, keys with a residual)."""
+    import torch
+
+    import geomx_tpu_torch.kvstore.torch_backend as TB
+    from geomx_tpu_torch.core.config import Config, Topology
+    from geomx_tpu_torch.kvstore import Simulation
+
+    init = {n: torch.from_numpy(np.random.default_rng(i).integers(
+        -8, 9, s).astype(np.float32) / 8)
+        for i, (n, s) in enumerate(shapes.items())}
+
+    def grad_fn(params, x, y):
+        rng = np.random.default_rng(x)
+        grads = {n: torch.from_numpy(
+            (rng.integers(-64, 65, p.shape) / 64.0
+             + p.cpu().numpy() / 4).astype(np.float32))
+            for n, p in params.items()}
+        zero = torch.zeros(())
+        return zero, zero, grads
+
+    saved = TB._MESH_DEVICES
+    TB._MESH_DEVICES = devices
+    try:
+        sim = Simulation(Config(
+            topology=Topology(num_parties=2, workers_per_party=2,
+                              num_global_servers=1),
+            sync_global_mode=True, merge_backend=backend,
+            merge_quantized=True, merge_residual=True))
+    finally:
+        TB._MESH_DEVICES = saved
+
+    def setup(kv, p, r):
+        if (p, r) == (0, 0):
+            kv.set_optimizer({"type": "sgd", "lr": 0.25})
+        return [(s, None) for s in range(3)]
+
+    try:
+        first = _fsa_workers(sim, init, grad_fn, setup)
+        servers = sim.local_servers + sim.global_servers
+        stats = [s.stats() for s in servers]
+        residual_keys = [len(s._backend._residuals) for s in servers]
+    finally:
+        sim.shutdown()
+    return first, stats, residual_keys
+
+
+def check_merge_rung(dev) -> dict:
+    """9d: TorchBackend(devices=[card] * 4) on JAX's merge-rung scenarios
+    with and without the int8 rung and its residual, each bitwise equal
+    to the same on ``["cpu"] * 4``; then an LM geo-round on the rung."""
+    import torch
+
+    from geomx_tpu_torch.core.config import Config, Topology
+    from geomx_tpu_torch.kvstore.torch_backend import (_MESH_MIN_ELEMS,
+                                                       TorchBackend)
+    from geomx_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params)
+
+    n, k = _MESH_MIN_ELEMS, MERGE_SLOTS
+    rng = np.random.default_rng(11)
+    exact = [np.full(n, float(i + 1), np.float32) for i in range(5)]
+    noisy = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    hot = np.full(n, 0.1, np.float32)
+    hot[0] = 400.0
+    out = {}
+    for quantized, residual in ((False, True), (True, False), (True, True)):
+        name = ("exact" if not quantized else
+                "int8+residual" if residual else "int8")
+        cfg = Config(topology=Topology(), merge_quantized=quantized,
+                     merge_residual=residual)
+        res = {}
+        for d in (dev, "cpu"):
+            be = TorchBackend(cfg, d, devices=[d] * k)
+            st = be.stats()
+            assert (st["merge_devices"], st["merge_quantized"],
+                    st["merge_residual"]) == (k, quantized,
+                                              quantized and residual), st
+            sums = [_merge_round(be, exact), _merge_round(be, noisy)]
+            sums += [_merge_round(be, [hot] * 4, key=1)
+                     for _ in range(MERGE_EF_ROUNDS)]
+            res[str(d)] = sums
+        card, host = res[str(dev)], res["cpu"]
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(card, host)), \
+            f"merge rung {name}: the card differs from the CPU"
+        bound = float(2.0 * 4 * max(np.abs(p).max() for p in noisy) / 127.0)
+        err = float(np.abs(card[1] - np.sum(noisy, 0)).max())
+        cum = float(np.sum([s[1] for s in card[2:]], dtype=np.float64))
+        want = MERGE_EF_ROUNDS * 4 * 0.1
+        log(f"merge rung {name} on {k} slots of the card: 5 pushes sum "
+            f"{'exactly' if (card[0] == 15.0).all() else 'NOT exactly'}; "
+            f"4 noisy pushes off their sum by {err:.4e} (int8 bound "
+            f"{bound:.4e}); hot block's small "
+            f"entry after {MERGE_EF_ROUNDS} rounds {cum:.4f} (exact "
+            f"{want}); bitwise "
+            f"equal to the CPU's")
+        if not quantized:
+            assert (card[0] == 15.0).all() and err <= 1e-5, err
+        else:
+            assert err <= bound, f"merge rung {name}: error {err} > {bound}"
+        step = 2 * 400.0 / 127.0
+        if quantized and residual:
+            assert abs(cum - want) <= 2 * step, cum
+            assert cum != out["int8"]["subthreshold_cum"], \
+                "merge rung: the residual changed nothing"
+        elif quantized:
+            assert abs(cum - want) >= 0.9 * want, cum
+            assert abs(cum - want) > 2 * step, cum
+        out[name] = {"int8_err": err, "bound": bound,
+                     "subthreshold_cum": cum, "rounds": MERGE_EF_ROUNDS}
+
+    cfg = TransformerConfig(**STAGED_WIDTHS)
+    shapes = {n: tuple(t.shape) for n, t in init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    t0 = time.perf_counter()
+    card, stats, with_res = _lm_rung_georound("torch", [dev] * k, shapes)
+    wall = time.perf_counter() - t0
+    host, _, _ = _lm_rung_georound("torch:cpu", ["cpu"] * k, shapes)
+    big = sum(1 for s in shapes.values() if math.prod(s) >= n)
+    assert all(s["merge_devices"] == k > 1 for s in stats), stats
+    assert all(s["merge_device"] == "cuda" for s in stats)
+    assert all(r >= big for r in with_res), (with_res, big)
+    finite = all(np.isfinite(np.frombuffer(b, np.float32)).all()
+                 for b in card)
+    assert finite, "the LM rung geo-round's weights are not finite"
+    assert card == host, "the LM rung geo-round: card differs from the CPU"
+    log(f"LM geo-round on the merge rung (2 x 2 + 1, int8 + residual, "
+        f"{len(shapes)} keys, {big} spread over {k} slots): weights finite "
+        f"and bitwise equal to the CPU's; merge_devices "
+        f"{stats[0]['merge_devices']}; keys with a residual by server "
+        f"{with_res}; {wall:.2f} s on the card")
+    out["lm_georound"] = {"keys": len(shapes), "spread_keys": big,
+                          "residual_keys_by_server": with_res,
+                          "wall_s": wall}
+    return out
+
+
 # the kernels each main path must launch; a kernel's ``launches`` in the
 # kernel table is the count from the first path that lists it
 PATH_KERNELS = {"2bit": ("quantize_2bit", "dequantize_2bit"),
@@ -2499,6 +3174,15 @@ def main() -> int:
     log(f"phase 8d done in {time.perf_counter() - t0:.1f} s")
     par = check_parity(dev)
     log(f"phase 8e done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tp = check_tp(dev)
+    log(f"phase 9a done in {time.perf_counter() - t0:.1f} s")
+    pp = check_pp(dev)
+    log(f"phase 9b done in {time.perf_counter() - t0:.1f} s")
+    dpr = check_dp(dev)
+    log(f"phase 9c done in {time.perf_counter() - t0:.1f} s")
+    rung = check_merge_rung(dev)
+    log(f"phase 9d done in {time.perf_counter() - t0:.1f} s")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -2512,6 +3196,14 @@ def main() -> int:
                          moe_lm_none=moe["georound_none"]["launches"],
                          zoo_resnet_bsc=zoo["georound"]["launches"],
                          parity=par["launches"])
+    # phase 9: the meshes' paths, every rank on the one card
+    path_launches.update(tp_dp2_tp2=tp["tp_flash"]["launches"],
+                         tp_ring_dp2_sp2_tp2=tp["tp_ring"]["launches"],
+                         moe_tp_ring=tp["moe"]["launches"],
+                         pp_pp2_dp2=pp["launches"],
+                         pp_hips=pp["hips"]["launches"],
+                         dp_party_step=dpr["launches"],
+                         dp_hips_2bit=dpr["hips"]["launches"])
     # the block kernels' main paths are the sequence-parallel steps of
     # phases 4b (bf16) and 4c (f32)
     launches["block_attn_fwd"] = sp["launches"]["block_attn_fwd"]
@@ -2580,6 +3272,8 @@ def main() -> int:
               "sp_step": sp, "f32_step": f32_step,
               "georound": geo, "staged_lm": staged, "launched": launched,
               "moe_lm": moe, "zoo": zoo, "int8": int8, "parity": par,
+              "parallel": {"tp": tp, "pp": pp, "dp": dpr,
+                           "merge_rung": rung},
               "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

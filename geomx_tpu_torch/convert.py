@@ -28,6 +28,12 @@ The flagship transformer (:func:`flax_lm_to_torch`,
 every shape, so conversion only renames along the key path
 (``layers.0.wq``) and orders the leaves as JAX's ``tree_flatten`` does.
 
+The pipelined flagship and the MLP stack of ``parallel/pipeline.py``
+(:func:`flax_pp_to_torch`, :func:`torch_pp_to_flax`): the same renaming
+along the key path, ``layers`` a dict of stacked ``[L, …]`` leaves
+(``layers.wq``).  The tensor-parallel flagship needs no converter: its
+parameters are the flagship's own, only their placement differs.
+
 The flagship's stages for the overlap loop (:func:`flax_staged_to_torch`,
 :func:`torch_staged_to_flax`): the JAX ``make_staged`` stage list (a
 list of flat dicts with numpy leaves) and the port's list of ordered
@@ -130,38 +136,65 @@ def torch_to_flax(params: Dict[str, torch.Tensor]) -> dict:
     return torch_zoo_to_flax(params, (FLATTEN_DENSE, FLATTEN_CHW))
 
 
+def _flat_items(tree, prefix: str = ""):
+    """``(dotted key path, leaf)`` in ``tree_flatten`` order: dict keys
+    sorted, list order kept."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _flat_items(tree[key], f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, node in enumerate(tree):
+            yield from _flat_items(node, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
 def flax_lm_to_torch(tree: dict, device=None
                      ) -> "OrderedDict[str, torch.Tensor]":
     """JAX transformer params (numpy leaves) → the port's ordered
     params, in ``tree_flatten`` order (dict keys sorted, list order
-    kept)."""
-    out = OrderedDict()
-    for key in sorted(tree):
-        if key == "layers":
-            for i, layer in enumerate(tree["layers"]):
-                for name in sorted(layer):
-                    out[f"layers.{i}.{name}"] = layer[name]
-        else:
-            out[key] = tree[key]
+    kept), each named by its key path (``layers.0.wq``)."""
     dev = device if device is not None else "cpu"
-    return OrderedDict((n, torch.from_numpy(np.array(v, np.float32)).to(dev))
-                       for n, v in out.items())
+    return OrderedDict(
+        (n, torch.from_numpy(np.array(v, np.float32)).to(dev))
+        for n, v in _flat_items(tree))
 
 
 def torch_lm_to_flax(params: Dict[str, torch.Tensor]) -> dict:
     """The port's transformer params → the JAX param tree with numpy
-    leaves."""
+    leaves: dotted names nested again, a level whose keys are all
+    integers a list."""
     tree: dict = {}
-    layers: Dict[int, dict] = {}
     for name, t in params.items():
-        a = t.detach().float().cpu().numpy().copy()
-        if name.startswith("layers."):
-            _, i, leaf = name.split(".", 2)
-            layers.setdefault(int(i), {})[leaf] = a
-        else:
-            tree[name] = a
-    tree["layers"] = [layers[i] for i in range(len(layers))]
-    return tree
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().float().cpu().numpy().copy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def flax_pp_to_torch(tree: dict, device=None
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``init_pp_transformer`` params (``embed``, ``head``, the
+    stacked ``layers`` dict of ``[L, ...]`` leaves, ``ln_f``, ``pos``) or
+    an ``init_mlp_stack`` tree (``w1``, ``w2``), numpy leaves → the
+    port's ordered params (``layers.wq`` …), in ``tree_flatten``
+    order."""
+    return flax_lm_to_torch(tree, device)
+
+
+def torch_pp_to_flax(params: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_pp_to_torch`."""
+    return torch_lm_to_flax(params)
 
 
 def flax_staged_to_torch(stages: List[dict], device=None

@@ -1,13 +1,27 @@
 """PyTorch merge backend: party aggregation, the server optimizer and the
-WAN codecs on one device (CUDA by default).
+WAN codecs on the backend's device (CUDA by default), the merge of a big
+key spread over device slots when there are several.
 
-The counterpart of the JAX package's ``kvstore/jax_backend.py``, single
-device:
+The counterpart of the JAX package's ``kvstore/jax_backend.py``:
 
 - each push is **staged exactly once** (one blocking H2D copy of the
   zero-copy recv view; ``h2d_bytes`` counts them) into an f32 device
   tensor, and later pushes fold into it with an in-place ``add_`` — the
   analog of the JAX path's donated-argument accumulate;
+- the **mesh rung**: with more than one device slot (``devices``; by
+  default every visible card, so one card leaves it off, as one chip
+  does in JAX) a key of at least ``_MESH_MIN_ELEMS`` elements spreads
+  its round over the slots — contribution i folds into slot ``i % k``
+  in arrival order — and the round close reduces across the slots, an
+  explicit f32 psum in slot order
+  (:func:`geomx_tpu_torch.parallel.mesh.psum`).  ``Config.
+  merge_quantized`` routes that reduction through the int8 block
+  quantized psum (:func:`~geomx_tpu_torch.parallel.quantized_allreduce.
+  quantized_psum_mean` × k), and ``merge_residual`` (default on) keeps a
+  per-key, per-slot error-feedback residual
+  (:func:`~geomx_tpu_torch.parallel.quantized_allreduce.
+  quantized_psum_mean_ef`), reset when k changes.  Slots may share a
+  device (``[card] * 4``, ``["cpu"] * 4``);
 - the **device-resident optimizer stage**: for plain/momentum SGD, NAG
   and Adam the round close
   keeps weights and moments on the device (:class:`DeviceOptimizer`)
@@ -36,9 +50,10 @@ Threads: the servers' lanes share the device's default stream;
 
 from __future__ import annotations
 
+import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -49,19 +64,88 @@ from geomx_tpu_torch.kvstore.backend import (MergeBackend, _accumulate_kernel,
                                              resolve_opt_device)
 from geomx_tpu_torch.ops import quantize as _q
 from geomx_tpu_torch.ops.quantize import _f32
+from geomx_tpu_torch.parallel.mesh import psum, visible_cards
+from geomx_tpu_torch.parallel.quantized_allreduce import (
+    quantized_psum_mean, quantized_psum_mean_ef)
+
+# below this many elements the mesh reduction loses to a plain add; the
+# JAX package's knob, under its name, so the CPU tests can spread small
+# keys
+_MESH_MIN_ELEMS = int(os.environ.get("GEOMX_MERGE_MESH_MIN_ELEMS",
+                                     str(1 << 16)))
+# the device slots a backend takes when not given ``devices``: None is
+# every visible card (the backend's own device alone on the CPU); tests
+# and the card's smoke run set a list, as JAX's tests patch the knob
+# above
+_MESH_DEVICES: Optional[List] = None
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """``d`` with its card index: a bare ``cuda`` is the current card."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class _DeviceAccum:
+    """One key's in-flight round spread over the device slots: one
+    pre-reduced part a slot (slot i on ``devices[i]``).  Confined to the
+    key's merge lane.  ``key`` anchors the error-feedback residual."""
+
+    __slots__ = ("parts", "elems", "count", "key")
+
+    def __init__(self, part: torch.Tensor, elems: int, key=None):
+        self.parts: List[torch.Tensor] = [part]
+        self.elems = elems
+        self.count = 1
+        self.key = key
+
+    @property
+    def nbytes(self) -> int:  # device-resident f32 bytes (stats())
+        return 4 * self.elems * len(self.parts)
+
+    def tobytes(self) -> bytes:
+        """The pending parts as the host bytes a numpy accumulator would
+        hold, folded on the host so peeking never perturbs the round."""
+        if len(self.parts) == 1:
+            return self.parts[0].cpu().numpy().tobytes()
+        total = np.zeros(self.elems, np.float32)
+        for p in self.parts:
+            total += p.cpu().numpy()
+        return total.tobytes()
 
 
 class TorchBackend(MergeBackend):
     """Accumulators are f32 device tensors, one per key's in-flight
-    round, confined to the key's merge lane (no lock); a host array
-    when a row-sparse scatter seeded the round."""
+    round, confined to the key's merge lane (no lock); a
+    :class:`_DeviceAccum` when the round spreads over the device slots;
+    a host array when a row-sparse scatter seeded the round."""
 
     name = "torch"
     # one device stream serializes the work; more lanes only contend
     max_lanes = 4
 
-    def __init__(self, config=None, device=None):
+    def __init__(self, config=None, device=None, devices=None):
         self.device = resolve_device(device)
+        if devices is None:
+            devices = _MESH_DEVICES
+        if devices is None:
+            # the backend's own device first, then the other cards
+            devices = [self.device] + (
+                [c for c in visible_cards() if c != _indexed(self.device)]
+                if self.device.type == "cuda" else [])
+        self._devices = [resolve_device(d) for d in devices]
+        # slot 0 holds the seed part and the reduced round, on the
+        # backend's device: the optimizer and codec stages read it there
+        if _indexed(self._devices[0]) != _indexed(self.device):
+            raise ValueError(f"device slots {self._devices} do not start "
+                             f"on the backend's device {self.device}")
+        self._quantized = bool(getattr(config, "merge_quantized", False))
+        self._ef = (self._quantized
+                    and bool(getattr(config, "merge_residual", True)))
+        # per-key error-feedback residual: key -> (slot count, one
+        # tensor a slot); mutated only on the key's merge lane
+        self._residuals: Dict[int, tuple] = {}
         self._threads = int(getattr(config, "server_merge_threads", 0)
                             or 0)
         # both stages are this backend's device work: turning either off
@@ -86,17 +170,19 @@ class TorchBackend(MergeBackend):
         self.codec_host_bytes = 0
 
     # ---- staging ------------------------------------------------------------
-    def _stage(self, v, copy: bool = False) -> torch.Tensor:
+    def _stage(self, v, copy: bool = False, device=None) -> torch.Tensor:
         """One H2D copy of the (possibly zero-copy wire view) payload,
-        f32-promoted.  The copy is blocking: a recv buffer may be reused
-        as soon as this returns, and a non-blocking copy from pageable
-        memory would race it.  A payload that is already a device tensor
-        (the codec stage's decode output) stages for free; ``copy``
-        forces a private buffer (a non-donated seed)."""
+        f32-promoted, onto ``device`` (the backend's by default).  The
+        copy is blocking: a recv buffer may be reused as soon as this
+        returns, and a non-blocking copy from pageable memory would race
+        it.  A payload that is already a device tensor (the codec
+        stage's decode output) stages for free; ``copy`` forces a
+        private buffer (a non-donated seed)."""
+        device = self.device if device is None else device
         if isinstance(v, torch.Tensor):
-            return v.to(self.device, torch.float32, copy=copy)
+            return v.to(device, torch.float32, copy=copy)
         arr = np.ascontiguousarray(v, dtype=np.float32)
-        staged = torch.from_numpy(arr).to(self.device, copy=copy)
+        staged = torch.from_numpy(arr).to(device, copy=copy)
         with self._mu:
             self.h2d_bytes += arr.nbytes
         return staged
@@ -108,6 +194,8 @@ class TorchBackend(MergeBackend):
         t0 = time.perf_counter()
         acc = self._stage(v, copy=not (donated
                                        and isinstance(v, torch.Tensor)))
+        if len(self._devices) > 1 and acc.shape[0] >= _MESH_MIN_ELEMS:
+            acc = _DeviceAccum(acc, int(acc.shape[0]), key)
         self._bill(t0)
         return acc
 
@@ -119,9 +207,55 @@ class TorchBackend(MergeBackend):
                                  self._threads)
             return acc
         t0 = time.perf_counter()
-        acc.add_(self._stage(v))
+        if isinstance(acc, _DeviceAccum):
+            # contribution i folds into slot i % k in arrival order; the
+            # round close reduces ACROSS the slots
+            slot = acc.count % len(self._devices)
+            dev = self._devices[slot]
+            if slot < len(acc.parts):
+                acc.parts[slot].add_(self._stage(v, device=dev))
+            else:
+                acc.parts.append(self._stage(v, copy=True, device=dev))
+            acc.count += 1
+        else:
+            acc.add_(self._stage(v))
         self._bill(t0)
         return acc
+
+    def _reduced(self, acc):
+        """The round's sum as one tensor on the backend's device: a
+        spread round reduced across its slots (exact psum, or the int8
+        rung × k, with the key's residual under ``merge_residual``)."""
+        if not isinstance(acc, _DeviceAccum):
+            return acc
+        parts, k = acc.parts, len(acc.parts)
+        if k == 1:
+            return parts[0]
+        if not self._quantized:
+            out = psum(parts)[0]
+        elif self._ef and acc.key is not None:
+            means, res = quantized_psum_mean_ef(
+                parts, self._residual_for(acc.key, k, acc.elems))
+            self._residuals[acc.key] = (k, res)
+            # the quantized mean × k is the party SUM the round close
+            # expects; the residual is in that sum's domain already
+            out = means[0] * _f32(k)
+        else:
+            out = quantized_psum_mean(parts)[0] * _f32(k)
+        # reduced once: a later read (round_value, then materialize)
+        # must not reduce, or move the residual, again
+        acc.parts = [out]
+        return out
+
+    def _residual_for(self, key, k: int, elems: int) -> List[torch.Tensor]:
+        """The key's per-slot residual, zeros when the slot count (or the
+        length) changed: a party fold reshapes the round, and a residual
+        kept for another k would compensate the wrong shards."""
+        ent = self._residuals.get(key)
+        if ent is not None and ent[0] == k and ent[1][0].shape[0] == elems:
+            return ent[1]
+        return [torch.zeros(elems, dtype=torch.float32, device=d)
+                for d in self._devices[:k]]
 
     # ---- round close --------------------------------------------------------
     def scale(self, acc, s: float):
@@ -129,7 +263,7 @@ class TorchBackend(MergeBackend):
             np.multiply(acc, s, out=acc)
             return acc
         t0 = time.perf_counter()
-        acc.mul_(_f32(s))
+        acc = self._reduced(acc).mul_(_f32(s))
         self._bill(t0)
         return acc
 
@@ -137,7 +271,8 @@ class TorchBackend(MergeBackend):
         if isinstance(acc, np.ndarray):
             return acc
         t0 = time.perf_counter()
-        host = acc.cpu().numpy()  # sync + one D2H (a view on cpu)
+        # sync + one D2H (a view on cpu)
+        host = self._reduced(acc).cpu().numpy()
         with self._mu:
             self.d2h_bytes += host.nbytes
         self._bill(t0)
@@ -186,7 +321,9 @@ class TorchBackend(MergeBackend):
         with self._mu:
             return {"merge_backend": self.name,
                     "merge_device": self.device.type,
-                    "merge_devices": 1,
+                    "merge_devices": len(self._devices),
+                    "merge_quantized": self._quantized,
+                    "merge_residual": self._ef,
                     "merge_opt_device": True,
                     "merge_device_ms": round(self.merge_device_ms, 3),
                     "opt_device_ms": round(self.opt_device_ms, 3),
@@ -270,8 +407,8 @@ class DeviceOptimizer:
     def _grad_ref(self, accum) -> torch.Tensor:
         # the device accumulator is the round's own (updated in place);
         # a host-seeded (row-sparse) round pays one billed H2D copy
-        if isinstance(accum, torch.Tensor):
-            return accum
+        if isinstance(accum, (torch.Tensor, _DeviceAccum)):
+            return self._be._reduced(accum)
         return self._be._stage(accum, copy=True)
 
     def _update(self, k: int, w, g, scale: float):
@@ -422,6 +559,8 @@ class CodecStage:
     def round_value(self, accum):
         """The completed round as one device tensor, without the host
         materialization ``MergeBackend.materialize`` would pay."""
+        if isinstance(accum, _DeviceAccum):
+            return self._be._reduced(accum)
         return accum  # a device tensor; host-seeded rounds pass through
 
     def concat(self, vs):

@@ -1,6 +1,6 @@
 """The flagship transformer LM — the port of the JAX package's
-``models/transformer.py``: one device, or sequence parallel over a
-mesh's ``sp`` axis.
+``models/transformer.py``: one device, or data, sequence and tensor
+(with expert) parallel over a mesh's ``dp``, ``sp`` and ``tp`` axes.
 
 A GPT-style LM: token + learned position embedding, ``n_layers`` blocks
 of RMSNorm → causal self-attention → residual → RMSNorm → GELU MLP →
@@ -19,11 +19,16 @@ order kept: ``embed``, each layer's ``ln1, ln2, w1, w2, wk, wo, wq, wv``
 Single-device attention per ``attn_impl``: ``dense`` (all-f32),
 ``fast`` (bf16 operands, f32 accumulation and softmax) or ``flash``
 (the hand CUDA kernels on the card, their plain versions on the CPU).
-With a mesh whose ``sp`` axis is larger than 1, attention runs sequence
-parallel per ``sp_attn``: ring attention (``attn_impl="flash"`` puts
-each hop's block on the hand block-attention kernel) or Ulysses.  The
-mesh is single-controller (:mod:`geomx_tpu_torch.parallel.mesh`): its
-ranks may share one card, or the CPU.  ``remat`` recomputes each layer
+On a mesh (:func:`make_apply`), the batch splits over ``dp``; each
+``tp`` rank holds its shards of the parameters (:func:`param_specs`,
+the JAX package's Megatron layout: heads, MLP columns and rows, MoE
+experts — ep ≡ tp — and a vocab-parallel embedding), and the row-split
+products are reduced across tp; with ``sp`` larger than 1, attention
+runs sequence parallel per ``sp_attn``: ring attention
+(``attn_impl="flash"`` puts each hop's block on the hand block-attention
+kernel) or Ulysses.  The mesh is single-controller
+(:mod:`geomx_tpu_torch.parallel.mesh`): its ranks may share one card, or
+the CPU.  ``remat`` recomputes each layer
 in the backward (``torch.utils.checkpoint``).  :func:`make_staged`
 splits the model into stages with an untied head for the P3 overlap
 loop (:mod:`geomx_tpu_torch.overlap`).
@@ -35,8 +40,7 @@ the router's softmax), ``moe_top_k > 0`` GShard-style top-k dispatch
 with capacity (:mod:`geomx_tpu_torch.parallel.moe`), whose
 load-balancing aux loss :func:`make_apply` returns with
 ``return_aux=True`` and :func:`make_lm_grad_fn` adds at
-``AUX_COEF``.  Not yet ported, and refused rather than run differently:
-the mesh's ``dp`` and ``tp`` axes (ROADMAP A11).
+``AUX_COEF``.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ from torch.utils.checkpoint import checkpoint
 
 from geomx_tpu_torch.core.platform import resolve_device
 from geomx_tpu_torch.ops.flash_attention import flash_attention
-from geomx_tpu_torch.parallel.moe import moe_ffn_topk
+from geomx_tpu_torch.parallel.mesh import (Mesh, named_sharding, psum,
+                                           reduce_mean)
+from geomx_tpu_torch.parallel.moe import (aux_loss, expert_capacity,
+                                          expert_ffn, route)
 from geomx_tpu_torch.parallel.ring_attention import (
     dense_attention, fast_dense_attention, ring_attention)
 from geomx_tpu_torch.parallel.ulysses import ulysses_attention
@@ -101,34 +108,59 @@ class TransformerConfig:
         return self.moe_every > 0 and self.moe_top_k > 0
 
 
-def _sp_size(mesh) -> int:
-    """The mesh's ``sp`` size (1 without a mesh).  The mesh must name
-    ``dp``, ``sp`` and ``tp`` (the JAX package shards activations as
-    ``P("dp", "sp", "tp", None)``); ``dp`` and ``tp`` must be 1."""
+def _mesh_sizes(cfg: TransformerConfig, mesh) -> tuple:
+    """The mesh's ``(dp, sp, tp)`` sizes, ``(1, 1, 1)`` without a mesh.
+    The mesh must name ``dp``, ``sp`` and ``tp`` (the JAX package shards
+    activations as ``P("dp", "sp", "tp", None)``), and tp must divide the
+    heads, the MLP's columns, the vocabulary and the experts."""
     if mesh is None:
-        return 1
+        return 1, 1, 1
     missing = [a for a in ("dp", "sp", "tp") if a not in mesh.axis_names]
     if missing:
         raise ValueError(f"the mesh must name the axes dp, sp and tp "
                          f"(missing {missing}): {mesh.shape}")
-    for axis in ("dp", "tp"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis} > 1 is not ported yet (ROADMAP A11): "
-                f"{mesh.shape}")
-    return mesh.shape["sp"]
+    tp = mesh.shape["tp"]
+    for what, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                    ("vocab", cfg.vocab)) + (
+                        (("n_experts", cfg.n_experts),)
+                        if cfg.moe_every > 0 else ()):
+        if n % tp:
+            raise ValueError(f"{what} = {n} does not split over tp = {tp}")
+    return mesh.shape["dp"], mesh.shape["sp"], tp
 
 
-def _sp_attention(cfg: TransformerConfig, mesh, q, k, v):
+def param_specs(cfg: TransformerConfig) -> "OrderedDict[str, tuple]":
+    """The placement of each parameter over a mesh's ``tp`` axis, keyed
+    and ordered as :func:`init_params` (the JAX package's
+    ``param_specs``): ``embed`` vocab-parallel; ``wq``/``wk``/``wv`` split
+    on heads, ``wo`` on its head dim; ``w1`` on columns, ``w2`` on rows;
+    a MoE layer's ``we1``/``we2`` on experts (ep ≡ tp); ``router``, the
+    norms and ``pos`` replicated.  Every parameter is replicated over
+    ``dp`` and ``sp``."""
+    layer = {"ln1": (None,), "ln2": (None,), "wq": (None, "tp", None),
+             "wk": (None, "tp", None), "wv": (None, "tp", None),
+             "wo": ("tp", None, None), "w1": (None, "tp"),
+             "w2": ("tp", None), "router": (None, None),
+             "we1": ("tp", None, None), "we2": ("tp", None, None)}
+    out: "OrderedDict[str, tuple]" = OrderedDict(embed=("tp", None))
+    for i in range(cfg.n_layers):
+        for name in cfg.layer_keys(i):
+            out[f"layers.{i}.{name}"] = layer[name]
+    out["ln_f"] = (None,)
+    out["pos"] = (None, None)
+    return out
+
+
+def _sp_attention(cfg: TransformerConfig, mesh, devs, q, k, v):
     """Causal attention over the mesh's ``sp`` axis: q, k, v split into
-    contiguous sequence shards, one on each rank's device, attention per
-    ``cfg.sp_attn``, and the shards joined on rank 0's device."""
+    contiguous sequence shards, one on each of ``devs`` (the ``sp``
+    ranks' devices), attention per ``cfg.sp_attn``, and the shards
+    joined on ``devs[0]``."""
     n = mesh.shape["sp"]
     T = q.shape[1]
     if T % n != 0:
         raise ValueError(f"sequence length {T} is not divisible by the "
                          f"'sp' axis size {n}")
-    devs = mesh.axis_devices("sp")
     t = T // n
 
     def split(x):
@@ -143,7 +175,7 @@ def _sp_attention(cfg: TransformerConfig, mesh, q, k, v):
                 else cfg.attn_impl != "dense")
         outs = ring_attention(split(q), split(k), split(v), mesh,
                               causal=True, fast=fast)
-    return torch.cat([o.to(devs[0]) for o in outs], dim=1).to(q.device)
+    return torch.cat([o.to(devs[0]) for o in outs], dim=1)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -204,52 +236,98 @@ def _single_device_attention(cfg: TransformerConfig, q, k, v):
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
-def _layer_forward(cfg: TransformerConfig, i: int, layer: Dict, x,
-                   attn_op: Callable):
-    """One block (attention + MLP or MoE residual); returns ``(x, aux)``,
-    ``aux`` the top-k MoE layer's load-balancing loss (else 0)."""
+def _layer_forward_tp(cfg: TransformerConfig, i: int, layers, xs,
+                      attn_ops):
+    """One block (attention + MLP or MoE residual) on the tp ranks of one
+    data-parallel rank: ``layers[t]`` holds rank t's shards of the
+    layer's parameters (:func:`param_specs`), ``xs[t]`` the residual
+    stream (every rank holds all of it, on its own device) and
+    ``attn_ops[t]`` rank t's attention over its heads.  Each rank
+    computes its heads, its MLP columns or its experts; the row-split
+    products (the attention's output projection, ``w2``, the experts'
+    combine) are partial sums, reduced across tp with
+    :func:`~geomx_tpu_torch.parallel.mesh.psum`.  Top-k routing runs
+    once, on rank 0, and each rank takes its experts' slice.  One rank
+    (``tp = 1``) is the single-device layer.  Returns ``(xs, stats)``,
+    ``stats`` a top-k MoE layer's ``(frac_tokens, mean_prob)`` (else
+    None)."""
     cd = cfg.compute_dtype
-    h = _rms_norm(x, layer["ln1"])
-    q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(cd))
-    k = torch.einsum("btd,dhk->bthk", h, layer["wk"].to(cd))
-    v = torch.einsum("btd,dhk->bthk", h, layer["wv"].to(cd))
-    a = attn_op(q, k, v)
-    x = x + torch.einsum("bthk,hkd->btd", a, layer["wo"].to(cd))
-    h = _rms_norm(x, layer["ln2"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    tp = len(xs)
+    hs = [_rms_norm(x, lp["ln1"]) for x, lp in zip(xs, layers)]
+    parts = []
+    for h, lp, attn in zip(hs, layers, attn_ops):
+        q = torch.einsum("btd,dhk->bthk", h, lp["wq"].to(cd))
+        k = torch.einsum("btd,dhk->bthk", h, lp["wk"].to(cd))
+        v = torch.einsum("btd,dhk->bthk", h, lp["wv"].to(cd))
+        parts.append(torch.einsum("bthk,hkd->btd", attn(q, k, v),
+                                  lp["wo"].to(cd)))
+    xs = [x + o for x, o in zip(xs, psum(parts))]
+    hs = [_rms_norm(x, lp["ln2"]) for x, lp in zip(xs, layers)]
+    stats, e = None, cfg.n_experts // tp
     if cfg.is_moe(i) and cfg.moe_top_k > 0:
         # top-k routing with capacity, the batch as the groups
-        y, aux = moe_ffn_topk(h, layer["router"], layer["we1"],
-                              layer["we2"], k=cfg.moe_top_k,
-                              capacity_factor=cfg.moe_capacity_factor,
-                              compute_dtype=cd)
-        x = x + y
+        S = hs[0].shape[1]
+        cap = expert_capacity(S, cfg.n_experts, cfg.moe_top_k,
+                              cfg.moe_capacity_factor)
+        logits = torch.einsum("gsd,de->gse", hs[0].float(),
+                              layers[0]["router"])
+        dispatch, combine, *stats = route(logits, cfg.moe_top_k, cap)
+        parts = [expert_ffn(h, dispatch[:, :, t * e:(t + 1) * e].to(h.device),
+                            combine[:, :, t * e:(t + 1) * e].to(h.device),
+                            lp["we1"], lp["we2"], cd)
+                 for t, (h, lp) in enumerate(zip(hs, layers))]
     elif cfg.is_moe(i):
         # dense routing: every expert computes, combined by the router
-        gates = torch.softmax(torch.einsum("btd,de->bte", h.float(),
-                                           layer["router"]), dim=-1).to(cd)
-        up = F.gelu(torch.einsum("btd,edf->btef", h, layer["we1"].to(cd)),
-                    approximate="tanh")
-        down = torch.einsum("btef,efd->bted", up, layer["we2"].to(cd))
-        x = x + torch.einsum("bted,bte->btd", down, gates)
+        parts = []
+        for t, (h, lp) in enumerate(zip(hs, layers)):
+            gates = torch.softmax(torch.einsum(
+                "btd,de->bte", h.float(), lp["router"]), dim=-1).to(cd)
+            up = F.gelu(torch.einsum("btd,edf->btef", h, lp["we1"].to(cd)),
+                        approximate="tanh")
+            down = torch.einsum("btef,efd->bted", up, lp["we2"].to(cd))
+            parts.append(torch.einsum("bted,bte->btd", down,
+                                      gates[..., t * e:(t + 1) * e]))
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        up = F.gelu(torch.einsum("btd,df->btf", h, layer["w1"].to(cd)),
-                    approximate="tanh")
-        x = x + torch.einsum("btf,fd->btd", up, layer["w2"].to(cd))
-    return x, aux
+        parts = [torch.einsum("btf,fd->btd", F.gelu(
+            torch.einsum("btd,df->btf", h, lp["w1"].to(cd)),
+            approximate="tanh"), lp["w2"].to(cd))
+            for h, lp in zip(hs, layers)]
+    return [x + y for x, y in zip(xs, psum(parts))], stats
+
+
+def _layer_forward(cfg: TransformerConfig, i: int, layer: Dict, x,
+                   attn_op: Callable):
+    """One block on one device; returns ``(x, aux)``, ``aux`` the top-k
+    MoE layer's load-balancing loss (else 0)."""
+    xs, stats = _layer_forward_tp(cfg, i, [layer], [x], [attn_op])
+    if stats is None:
+        return xs[0], torch.zeros((), dtype=torch.float32, device=x.device)
+    return xs[0], aux_loss(*stats)
 
 
 def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
     """The forward ``apply(params, tokens [B, T] int) -> logits [B, T, V]
     f32`` (``(logits, aux)`` with ``return_aux``, ``aux`` the MoE
     load-balancing loss summed over layers, 0 without top-k MoE).
-    ``params`` is keyed like :func:`init_params`.  With a ``mesh``
-    (naming ``dp``, ``sp`` and ``tp``) whose ``sp`` is larger than 1,
-    attention runs sequence parallel over it; ``sp == 1`` is the
-    single-device path.  Raises NotImplementedError on ``dp``/``tp``
-    larger than 1.  Training top-k MoE through the logits-only form
-    drops the load-balancing aux, so that warns, as JAX's does."""
+    ``params`` is keyed like :func:`init_params`.
+
+    With a ``mesh`` naming ``dp``, ``sp`` and ``tp`` (any sizes), the
+    step runs single-controller over it, as the JAX package's GSPMD
+    step with :func:`param_specs` does: the batch split over ``dp``; on
+    each ``(dp, tp)`` rank (the device of its ``sp`` rank 0) that rank's
+    shards of the parameters, placed by
+    :func:`~geomx_tpu_torch.parallel.mesh.named_sharding`, whose backward
+    sums a replicated shard's gradients over its ranks; the
+    vocab-parallel lookup masked per shard and summed across tp; each
+    layer per :func:`_layer_forward_tp`; attention per ``(dp, tp)`` rank
+    on its heads — single-device when ``sp == 1``, else ring or Ulysses
+    (``sp_attn``) over that rank's ``sp`` ranks; the tied head's
+    vocab-sharded logits gathered, and the dp shards joined on rank 0's
+    device.  A top-k MoE layer's aux comes from its routing statistics
+    averaged over dp (the global batch's, as JAX's).  Training top-k MoE
+    through the logits-only form drops the load-balancing aux, so that
+    warns, as JAX's does."""
     if cfg.uses_aux and not return_aux:
         warnings.warn(
             "make_apply(return_aux=False) with top-k MoE discards the "
@@ -258,36 +336,89 @@ def make_apply(cfg: TransformerConfig, mesh=None, return_aux: bool = False):
     if cfg.sp_attn not in ("ring", "ulysses"):
         raise ValueError(
             f"sp_attn must be 'ring' or 'ulysses', got {cfg.sp_attn!r}")
-    use_sp = _sp_size(mesh) > 1
+    dp, sp, tp = _mesh_sizes(cfg, mesh)
+    specs = param_specs(cfg)
+    if mesh is not None:
+        # the (dp, tp) ranks that hold the parameters and run the layers
+        cmesh = Mesh({"dp": dp, "tp": tp},
+                     [mesh.device(dp=d, sp=0, tp=t)
+                      for d in range(dp) for t in range(tp)])
+    cd = cfg.compute_dtype
 
-    def attn_op(q, k, v):
-        if use_sp:
-            return _sp_attention(cfg, mesh, q, k, v)
-        return _single_device_attention(cfg, q, k, v)
+    def attn_op(d: int, t: int) -> Callable:
+        if sp == 1:
+            return lambda q, k, v: _single_device_attention(cfg, q, k, v)
+        devs = mesh.axis_devices("sp", dp=d, tp=t)
+        return lambda q, k, v: _sp_attention(cfg, mesh, devs, q, k, v)
 
-    def layer_fn(layer, x, i):
-        return _layer_forward(cfg, i, layer, x, attn_op)
+    def layer_fn(i, layers, xs, attns):
+        return _layer_forward_tp(cfg, i, layers, xs, attns)
 
-    def apply(params: Dict[str, torch.Tensor], tokens: torch.Tensor):
-        cd = cfg.compute_dtype
+    def forward(ranks, tokens, devs, attns):
+        """One dp rank: ``ranks[t]`` tp rank t's parameter shards."""
         T = tokens.shape[1]
-        x = params["embed"][tokens].to(cd)
-        x = x + params["pos"][:T][None].to(cd)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        if len(ranks) == 1:
+            xs = [ranks[0]["embed"][tokens.to(devs[0])]]
+        else:
+            xs = []
+            for t, (p, dev) in enumerate(zip(ranks, devs)):
+                # vocab-parallel lookup: this shard's rows, zeros elsewhere
+                w = p["embed"].shape[0]
+                ids = tokens.to(dev) - w * t
+                inside = ((ids >= 0) & (ids < w))[..., None]
+                xs.append(torch.where(
+                    inside, p["embed"][ids.clamp(0, w - 1)], 0.0))
+        xs = [x.to(cd) + p["pos"][:T][None].to(cd)
+              for x, p in zip(psum(xs), ranks)]
+        stats = []
         for i in range(cfg.n_layers):
-            layer = {n: params[f"layers.{i}.{n}"]
-                     for n in cfg.layer_keys(i)}
+            layers = [{n: p[f"layers.{i}.{n}"] for n in cfg.layer_keys(i)}
+                      for p in ranks]
             if cfg.remat:
                 # recompute the layer in the backward, as jax.checkpoint
-                x, aux = checkpoint(layer_fn, layer, x, i,
+                xs, st = checkpoint(layer_fn, i, layers, xs, attns,
                                     use_reentrant=False)
             else:
-                x, aux = layer_fn(layer, x, i)
-            aux_total = aux_total + aux
-        x = _rms_norm(x, params["ln_f"])
-        # the tied head runs in the compute dtype, then goes to f32
-        logits = torch.einsum("btd,vd->btv", x,
-                              params["embed"].to(cd)).float()
+                xs, st = layer_fn(i, layers, xs, attns)
+            if st is not None:
+                stats.append(st)
+        # the tied head runs in the compute dtype; its vocab shards are
+        # gathered, then go to f32
+        logits = [torch.einsum("btd,vd->btv", _rms_norm(x, p["ln_f"]),
+                               p["embed"].to(cd)) for x, p in zip(xs, ranks)]
+        if len(logits) == 1:
+            return logits[0].float(), stats
+        return torch.cat([lg.to(devs[0]) for lg in logits], -1).float(), stats
+
+    def apply(params: Dict[str, torch.Tensor], tokens: torch.Tensor):
+        if mesh is None:
+            dev = params["embed"].device
+            logits, stats = forward([params], tokens, [dev], [attn_op(0, 0)])
+            stats = [[st] for st in stats]
+        else:
+            B = tokens.shape[0]
+            if B % dp:
+                raise ValueError(f"batch {B} does not split over dp = {dp}")
+            b = B // dp
+            placed = {n: named_sharding(cmesh, *specs[n]).shard(t)
+                      for n, t in params.items()}
+            outs, by_rank = [], []
+            for d in range(dp):
+                ranks = [cmesh.rank(dp=d, tp=t) for t in range(tp)]
+                lg, st = forward([{n: placed[n][r] for n in placed}
+                                  for r in ranks], tokens[d * b:(d + 1) * b],
+                                 [cmesh.devices[r] for r in ranks],
+                                 [attn_op(d, t) for t in range(tp)])
+                outs.append(lg)
+                by_rank.append(st)
+            dev = cmesh.devices[0]
+            logits = torch.cat([o.to(dev) for o in outs], 0)
+            stats = list(zip(*by_rank))     # each MoE layer's, over dp
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        for layer in stats:
+            frac, mean_prob = zip(*layer)
+            aux_total = aux_total + aux_loss(reduce_mean(frac, dev),
+                                             reduce_mean(mean_prob, dev))
         return (logits, aux_total) if return_aux else logits
 
     return apply

@@ -46,26 +46,14 @@ def topk_indices(probs: torch.Tensor, k: int) -> torch.Tensor:
                       stable=True).indices[..., :k]
 
 
-def topk_dispatch_combine(router_logits: torch.Tensor, k: int,
-                          capacity: int
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
-    """Top-k routing tensors for grouped tokens.
-
-    ``router_logits``: ``[G, S, E]`` (G groups of S tokens), taken in
-    f32.  Returns ``(dispatch, combine, aux_loss)``:
-
-    - ``dispatch`` ``[G, S, E, C]`` f32 in {0, 1} — token s of group g
-      occupies slot c of expert e;
-    - ``combine`` ``[G, S, E, C]`` f32 — dispatch times the token's
-      gate for that expert (the top-k probabilities renormalised to sum
-      to 1, the sum floored at 1e-9);
-    - ``aux_loss`` scalar — the Switch load-balancing loss
-      ``E · Σ_e frac_tokens_e · mean_prob_e`` over first choices.
-
-    Priority is choice-major then token-major (all first choices claim
-    slots before any second choice), as GShard's.
-    """
+def route(router_logits: torch.Tensor, k: int, capacity: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                     torch.Tensor]:
+    """:func:`topk_dispatch_combine`'s routing with the aux loss's two
+    statistics in place of the loss: ``(dispatch, combine,
+    frac_tokens [E], mean_prob [E])``, the means over this call's
+    groups.  A data-parallel caller averages the statistics over its
+    ranks before forming the loss, which is not linear in them."""
     G, S, E = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
     gate_idx = topk_indices(probs, k)                       # [G, S, k]
@@ -93,10 +81,53 @@ def topk_dispatch_combine(router_logits: torch.Tensor, k: int,
                            onehot * (gate_vals * keep)[..., None], loc)
 
     first = F.one_hot(gate_idx[..., 0], E).float()
-    frac_tokens = first.mean(dim=(0, 1))                    # [E]
-    mean_prob = probs.mean(dim=(0, 1))                      # [E]
-    aux_loss = E * (frac_tokens * mean_prob).sum()
-    return dispatch, combine, aux_loss
+    return dispatch, combine, first.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+
+
+def aux_loss(frac_tokens: torch.Tensor, mean_prob: torch.Tensor
+             ) -> torch.Tensor:
+    """The Switch load-balancing loss ``E · Σ_e frac_e · mean_prob_e``."""
+    return frac_tokens.shape[0] * (frac_tokens * mean_prob).sum()
+
+
+def topk_dispatch_combine(router_logits: torch.Tensor, k: int,
+                          capacity: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Top-k routing tensors for grouped tokens.
+
+    ``router_logits``: ``[G, S, E]`` (G groups of S tokens), taken in
+    f32.  Returns ``(dispatch, combine, aux_loss)``:
+
+    - ``dispatch`` ``[G, S, E, C]`` f32 in {0, 1} — token s of group g
+      occupies slot c of expert e;
+    - ``combine`` ``[G, S, E, C]`` f32 — dispatch times the token's
+      gate for that expert (the top-k probabilities renormalised to sum
+      to 1, the sum floored at 1e-9);
+    - ``aux_loss`` scalar — the Switch load-balancing loss
+      ``E · Σ_e frac_tokens_e · mean_prob_e`` over first choices.
+
+    Priority is choice-major then token-major (all first choices claim
+    slots before any second choice), as GShard's.
+    """
+    dispatch, combine, frac, mean_prob = route(router_logits, k, capacity)
+    return dispatch, combine, aux_loss(frac, mean_prob)
+
+
+def expert_ffn(x: torch.Tensor, dispatch: torch.Tensor,
+               combine: torch.Tensor, we1: torch.Tensor, we2: torch.Tensor,
+               compute_dtype: torch.dtype) -> torch.Tensor:
+    """The routed experts' FFN on ``x [G, S, D]``: dispatch, both expert
+    products (tanh GELU between) and the combine in ``compute_dtype``,
+    experts leading (``[E, G, C, D]``).  ``we1``/``we2`` and the expert
+    dim of ``dispatch``/``combine`` may be a slice of the experts (an
+    expert-parallel rank's); the result is then that slice's share."""
+    cd = compute_dtype
+    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), x.to(cd))
+    up = F.gelu(torch.einsum("egcd,edf->egcf", xe, we1.to(cd)),
+                approximate="tanh")
+    ye = torch.einsum("egcf,efd->egcd", up, we2.to(cd))
+    return torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
 
 
 def moe_ffn_topk(x: torch.Tensor, router_w: torch.Tensor,
@@ -108,10 +139,9 @@ def moe_ffn_topk(x: torch.Tensor, router_w: torch.Tensor,
     """Top-k routed expert FFN.
 
     ``x`` ``[G, S, D]``, ``router_w`` ``[D, E]``, ``we1`` ``[E, D, F]``,
-    ``we2`` ``[E, F, D]``.  Router logits in f32, then the dispatch,
-    both expert products (tanh GELU between) and the combine in
-    ``compute_dtype``, experts leading (``[E, G, C, D]``).  Returns
-    ``(y [G, S, D] in compute_dtype, aux_loss)``.
+    ``we2`` ``[E, F, D]``.  Router logits in f32, then
+    :func:`expert_ffn`.  Returns ``(y [G, S, D] in compute_dtype,
+    aux_loss)``.
     """
     G, S, D = x.shape
     E = router_w.shape[-1]
@@ -119,12 +149,6 @@ def moe_ffn_topk(x: torch.Tensor, router_w: torch.Tensor,
         capacity = expert_capacity(S, E, k, capacity_factor)
 
     logits = torch.einsum("gsd,de->gse", x.float(), router_w)
-    dispatch, combine, aux_loss = topk_dispatch_combine(logits, k, capacity)
-
-    cd = compute_dtype
-    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), x.to(cd))
-    up = F.gelu(torch.einsum("egcd,edf->egcf", xe, we1.to(cd)),
-                approximate="tanh")
-    ye = torch.einsum("egcf,efd->egcd", up, we2.to(cd))
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
-    return y.to(cd), aux_loss
+    dispatch, combine, aux = topk_dispatch_combine(logits, k, capacity)
+    y = expert_ffn(x, dispatch, combine, we1, we2, compute_dtype)
+    return y.to(compute_dtype), aux

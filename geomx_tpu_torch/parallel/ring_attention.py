@@ -11,7 +11,8 @@ runs it inside ``shard_map``, with ``lax.ppermute`` moving the blocks;
 the port runs the same program single-controller over a
 :class:`~geomx_tpu_torch.parallel.mesh.Mesh`: it takes the list of
 per-rank shards, loops over the ranks, and moves a block to its next
-holder's device with ``.to(device)`` (a no-op when ranks share a card).
+holder's device with :func:`~geomx_tpu_torch.parallel.mesh.ppermute` (a
+no-op when ranks share a card).
 
 ``dense_attention`` and ``fast_dense_attention`` are the single-device
 functions on ``[B, T, H, Dh]`` tensors.
@@ -23,6 +24,8 @@ import math
 from typing import List, Sequence
 
 import torch
+
+from geomx_tpu_torch.parallel.mesh import ppermute
 
 MASK_VALUE = -1e30
 
@@ -143,7 +146,7 @@ def ring_attention(q_shards: Sequence[torch.Tensor],
             m[r] = new_m
         if i + 1 < n:
             # rank j receives the block of rank j + 1
-            k_blk = [k_blk[(j + 1) % n].to(devs[j]) for j in range(n)]
-            v_blk = [v_blk[(j + 1) % n].to(devs[j]) for j in range(n)]
+            perm = [((j + 1) % n, j) for j in range(n)]
+            k_blk, v_blk = ppermute(k_blk, perm), ppermute(v_blk, perm)
     return [(o[r] / torch.clamp(l[r], min=1e-20)[..., None])
             .to(q_shards[r].dtype) for r in range(n)]

@@ -9,8 +9,9 @@ second all-to-all restores the sequence sharding.  Two exchanges in all
 instead of ``sp`` hops; the head count must divide by ``sp``.
 
 Single-controller, as :func:`~geomx_tpu_torch.parallel.ring_attention.
-ring_attention` is: the all-to-alls are slices moved to their new
-rank's device with ``.to(device)`` and concatenated there.  It runs no
+ring_attention` is: the all-to-alls are
+:func:`~geomx_tpu_torch.parallel.mesh.all_to_all`, slices moved to their
+new rank's device and concatenated there.  It runs no
 kernel of its own.
 """
 
@@ -20,6 +21,7 @@ from typing import List, Sequence
 
 import torch
 
+from geomx_tpu_torch.parallel.mesh import all_to_all
 from geomx_tpu_torch.parallel.ring_attention import (
     dense_attention, fast_dense_attention)
 
@@ -46,16 +48,12 @@ def ulysses_attention(q_shards: Sequence[torch.Tensor],
             f"ulysses_attention needs the per-shard head count ({H} heads "
             f"a rank) divisible by the '{axis}' axis size ({n}); use "
             f"ring_attention otherwise")
-    devs = [q.device for q in q_shards]
-    hp, t = H // n, q_shards[0].shape[1]
 
     def seq_to_heads(xs):   # [B, T/n, H, D] each -> [B, T, H/n, D] each
-        return [torch.cat([x[:, :, r * hp:(r + 1) * hp].to(devs[r])
-                           for x in xs], dim=1) for r in range(n)]
+        return all_to_all(xs, split_dim=2, concat_dim=1)
 
     def heads_to_seq(xs):   # [B, T, H/n, D] each -> [B, T/n, H, D] each
-        return [torch.cat([x[:, r * t:(r + 1) * t].to(devs[r])
-                           for x in xs], dim=2) for r in range(n)]
+        return all_to_all(xs, split_dim=1, concat_dim=2)
 
     attn = fast_dense_attention if fast else dense_attention
     outs = [attn(a, b, c, causal=causal) for a, b, c in

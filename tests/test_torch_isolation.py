@@ -148,6 +148,37 @@ def test_zoo_moe_int8_and_parity_entry_points_raise_without_cuda(
         .type == "cpu"
 
 
+def test_mesh_entry_points_raise_without_cuda_unless_cpu(no_cuda):
+    """The multi-device entry points: a mesh, the party meshes, the
+    pipelined flagship's and the MLP stack's params, and the torch
+    backend's default device slots raise without CUDA, as does the
+    single-device step's timer; CPU meshes and slots, asked for by
+    name, run."""
+    from geomx_tpu_torch.examples.time_lm_step import main as time_step
+    from geomx_tpu_torch.kvstore.torch_backend import TorchBackend
+    from geomx_tpu_torch.models.transformer import TransformerConfig
+    from geomx_tpu_torch.parallel import make_mesh
+    from geomx_tpu_torch.parallel.dp import party_meshes
+    from geomx_tpu_torch.parallel.pipeline import (init_mlp_stack,
+                                                   init_pp_transformer)
+
+    tiny = TransformerConfig(vocab=16, d_model=8, n_heads=2, n_layers=2,
+                             d_ff=16, max_seq=4)
+    for call in (lambda: make_mesh({"dp": 1, "sp": 1, "tp": 1}),
+                 lambda: party_meshes(2),
+                 lambda: init_pp_transformer(tiny, torch.Generator()),
+                 lambda: init_mlp_stack(torch.Generator(), 2, 4, 8),
+                 lambda: TorchBackend(None, devices=["cuda"] * 2),
+                 lambda: time_step(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert party_meshes(2, ["cpu"] * 4)[1].devices[0].type == "cpu"
+    assert init_pp_transformer(tiny, torch.Generator(), "cpu")[
+        "layers.wq"].shape == (2, 8, 2, 4)
+    assert TorchBackend(None, "cpu", devices=["cpu"] * 4).stats()[
+        "merge_devices"] == 4
+
+
 def test_launcher_roles_raise_without_cuda_unless_cpu(no_cuda):
     """Without CUDA a launched worker raises unless ``--device cpu``, a
     server unless its merge backend is ``numpy`` or ``torch:cpu``; both

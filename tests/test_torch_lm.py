@@ -155,15 +155,26 @@ def test_bf16_compute_runs_flash_and_keeps_f32_params():
     assert abs(float(loss) - np.log(WIDTHS["vocab"])) < 0.5
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(jparams):
+    """The mesh's dp and tp axes are ported (tests/test_torch_tp.py):
+    a dp × sp and a tp mesh run the step (logits within 2e-5 of the
+    single-device run here, in f32), and a tp that does not split the
+    heads is refused.  MoE built without the aux warns; an unknown
+    attention is refused."""
     from geomx_tpu_torch.parallel import make_mesh
 
     _, cfg = _cfgs("fast")
-    # the mesh's sp axis is ported (tests/test_torch_sp.py); dp and tp
-    # are not
+    params = flax_lm_to_torch(jparams)
+    x = torch.from_numpy(_tokens()).long()
+    ref = T.make_apply(cfg)(params, x)
     for axes in ({"dp": 2, "sp": 2, "tp": 1}, {"dp": 1, "sp": 1, "tp": 2}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            T.make_apply(cfg, mesh=make_mesh(axes, devices=["cpu"] * 4))
+        out = T.make_apply(cfg, mesh=make_mesh(axes, devices=["cpu"] * 4))(
+            params, x)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   ref.detach().numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="does not split over tp"):
+        T.make_apply(cfg, mesh=make_mesh({"dp": 1, "sp": 1, "tp": 3},
+                                         devices=["cpu"] * 3))
     # MoE is ported (tests/test_torch_moe.py): top-k built without the
     # aux warns, as JAX's does
     with pytest.warns(UserWarning, match="aux"):
