@@ -249,7 +249,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    a 2 × 2 + 1 geo-round of the flagship's 35 key shapes on the rung
    with its residual (the port's default device slots set to 4 on the
    card, then on the CPU): weights finite and bitwise equal, every
-   server's ``merge_devices`` 4 and each big key holding a residual.
+   server's ``merge_devices`` 4 and each big key holding a residual;
+10. the JAX package's process-level acceptance suite
+   (``geomx_tpu_torch/acceptance.py``) against the launcher on the
+   card: every case but phase 7b's two, with its JAX test's topology,
+   flags, steps and environment, every role ``--device cuda`` on the
+   default merge backend (the torch backend on the card) — TSEngine
+   relays, HFA's K2 gate, ESync with a worker slowed 150 ms a step (the
+   fast worker gets more local steps, per-step ratio above 2, reach
+   ratio below 2), DGT mode 3's 4-bit chunks, the MoE LM over TCP
+   (``n_params`` above 1.5M, tokens/s), the MPQ size split on the CNN,
+   a worker's ``--join`` in the plain, TSEngine and HFA modes ("joined
+   as rank 2", "left cleanly"), the global server SIGKILLed once its
+   auto-checkpoint holds a trained round and restarted ("resumed from",
+   its restored Adam state on ``cuda:0`` for all 10 keys) or replaced
+   at a new address (its restored state held the same), a hot standby
+   promoted after its primary's SIGKILL at the worker's round 10 of 120
+   (``term=1``, the promoted Adam state on ``cuda:0``, the final loss
+   and the losses of rounds 11–30 within 0.5 of an unkilled control
+   run's, and the zombie — started with the cluster, let through
+   ``--start-gate`` at the promotion — fenced), the same per
+   shard on 2 shards with 2 standbys (0.35), the full 1 × 1
+   topology, DGT mode 1 over lossy UDP, and two parties on distinct
+   loopback addresses; every process exits 0 (the killed and the zombie
+   excepted), every worker prints ``steps=N``, every server
+   ``merge_backend=torch``, each local server of an MPQ case launched
+   the DGC update once for each key its selector sent down BSC; the
+   cases whose gates read no wall time run 4 clusters at once, ESync,
+   the joins and the failover (whose joiner or zombie must come up
+   within the cluster's remaining rounds) one at a time;
+   each case's wall printed, each process's output kept in
+   ``chiprun_out/chip_smoke_accept_*.txt``.
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -446,6 +476,8 @@ MERGE_SLOTS = 4
 # round 16; at 40 the wanted 16.0 lies more than two steps from the 0
 # that the int8 rung gives without its residual
 MERGE_EF_ROUNDS = 40
+# phase 10: clusters of the untimed acceptance cases run at once
+ACCEPT_PARALLEL = 4
 
 
 def log(msg: str) -> None:
@@ -2037,6 +2069,58 @@ def run_launched_clusters() -> dict:
     return out
 
 
+# ---- phase 10: the JAX package's process-level acceptance suite ----------
+
+def run_acceptance() -> dict:
+    """10: every case of ``geomx_tpu_torch/acceptance.py`` but phase 7b's
+    (the P3 staged MLP and the dense LM under MPQ), each role its own
+    process with ``--device cuda`` and the default merge backend (the
+    torch backend on this card), each held to its JAX test's mechanism
+    assertion and the suite's common gates.  The cases marked ``timing``
+    (a gate reads wall time, or a joiner or zombie must come up within
+    the cluster's remaining rounds) run one at a time; the others
+    ``ACCEPT_PARALLEL`` at once.  The kernels are built already; a
+    child only loads them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomx_tpu_torch import acceptance as A
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+
+    assert not C.LIB.stale() and not FK.LIB.stale(), \
+        "a kernel library is not built: a child process would build it"
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    names = [n for n in A.CASES if n not in A.IN_PHASE_7B]
+    timing = [n for n in names if A.CASES[n].timing]
+    # the scenarios with a kill (two runs for the shards) first: the
+    # pool ends with the short plain cases
+    untimed = sorted((n for n in names if not A.CASES[n].timing),
+                     key=lambda n: A.CASES[n].scenario == "plain")
+    log(f"phase 10: {len(untimed)} cases {ACCEPT_PARALLEL} clusters at "
+        f"once ({untimed}), then {len(timing)} timed cases one at a "
+        f"time ({timing})")
+
+    def case(name):
+        rec = A.run_case(name, "cuda", out_dir=out_dir,
+                         prefix="chip_smoke_accept_")
+        log(f"accept {name}: {rec['seconds']:.1f} s "
+            f"{json.dumps(rec, default=str)}")
+        return rec
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(ACCEPT_PARALLEL) as ex:
+        futures = {n: ex.submit(case, n) for n in untimed}
+        recs = {n: f.result() for n, f in futures.items()}
+    untimed_s = time.perf_counter() - t0
+    for n in timing:
+        recs[n] = case(n)
+    return {"cases": recs, "parallel": ACCEPT_PARALLEL,
+            "untimed_s": untimed_s,
+            "timed_s": time.perf_counter() - t0 - untimed_s,
+            "seconds": time.perf_counter() - t0}
+
+
 # ---- phase 8: MoE, the zoo, int8 and the parity harness ------------------
 
 class _moe_env:
@@ -3183,6 +3267,10 @@ def main() -> int:
     log(f"phase 9c done in {time.perf_counter() - t0:.1f} s")
     rung = check_merge_rung(dev)
     log(f"phase 9d done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    accept = run_acceptance()
+    log(f"phase 10 done in {time.perf_counter() - t0:.1f} s "
+        f"({accept['seconds']:.1f} s)")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -3192,6 +3280,11 @@ def main() -> int:
                          staged_lm=staged["launches"])
     path_launches["launched_lm_mpq_local_servers"] = {"dgc_update": sum(
         launched["lm_mpq"]["dgc_update_by_server"].values())}
+    # phase 10's MPQ cases: the DGC updates of their local servers
+    for name, rec in accept["cases"].items():
+        if "dgc_update_by_server" in rec:
+            path_launches[f"accept_{name}_local_servers"] = {
+                "dgc_update": sum(rec["dgc_update_by_server"].values())}
     path_launches.update(moe_lm=moe["georound"]["launches"],
                          moe_lm_none=moe["georound_none"]["launches"],
                          zoo_resnet_bsc=zoo["georound"]["launches"],
@@ -3274,6 +3367,7 @@ def main() -> int:
               "moe_lm": moe, "zoo": zoo, "int8": int8, "parity": par,
               "parallel": {"tp": tp, "pp": pp, "dp": dpr,
                            "merge_rung": rung},
+              "acceptance": accept,
               "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

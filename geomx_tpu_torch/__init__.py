@@ -14,5 +14,7 @@ the ring hop's block attention (``csrc/flash_attention.cu`` and
 caller passes ``device="cpu"``.
 """
 
+__version__ = "0.1.0"
+
 from geomx_tpu_torch.core.config import Config, Role, Topology  # noqa: F401
 from geomx_tpu_torch.core.platform import resolve_device  # noqa: F401

@@ -4439,13 +4439,18 @@ class GlobalServer:
         with self._mu:
             if term > self.term:
                 self.term = term
-                self.is_standby = False
+                was_standby, self.is_standby = self.is_standby, False
                 self._fenced = False  # a promote supersedes any fence
                 self.promotions += 1
                 # the replicated trajectory enters the device stage NOW
                 # (deferred while standby): the promoted holder resumes
-                # the momentum/moments the primary was training with
-                self._activate_dev_opt_locked()
+                # the momentum/moments the primary was training with.
+                # A live primary promoted as a drain target already runs
+                # its stage, which holds the state (the host shell's was
+                # handed over): re-deriving it would drop every key's
+                # trajectory, its own and the adopted range's alike
+                if self._dev_opt is None:
+                    self._activate_dev_opt_locked()
                 parked, self._parked_standby = self._parked_standby, []
                 for k in list(self.store):
                     for m in self._serve_parked_pulls_locked(k):
@@ -4461,6 +4466,12 @@ class GlobalServer:
                 print(f"{self.po.node}: promoted to primary "
                       f"(term={term}, keys={len(self.store)}, "
                       f"repl_seq={self._repl_seq})", flush=True)
+                if was_standby:
+                    # where the adopted optimizer state now lives
+                    dev = self._dev_opt
+                    print(f"{self.po.node}: promoted optimizer state: "
+                          + (dev.state_summary() if dev is not None
+                             else "opt_device_keys=0"), flush=True)
         self.po.van.send(msg.reply_to(control=Control.PROMOTE, body={
             "ok": not self.is_standby, "term": self.term,
             "keys": len(self.store), "token": body.get("token")}))

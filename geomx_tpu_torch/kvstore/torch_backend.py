@@ -456,6 +456,20 @@ class DeviceOptimizer:
     def stats(self) -> dict:
         return {"opt_device": self.kind, "opt_device_keys": len(self._st)}
 
+    def state_summary(self) -> str:
+        """``opt_device_keys=N opt_state_on=DEVICES opt_steps=LO..HI``:
+        how many keys hold state, the devices their tensors sit on, and
+        the range of Adam's step counter (a host int), for the exit and
+        restore lines of a launched server."""
+        on = sorted({str(v.device) for st in self._st.values()
+                     for v in st.values() if isinstance(v, torch.Tensor)})
+        steps = sorted(st["t"] for st in self._st.values() if "t" in st)
+        out = (f"opt_device_keys={len(self._st)} "
+               f"opt_state_on={','.join(on) or '-'}")
+        if steps:
+            out += f" opt_steps={steps[0]}..{steps[-1]}"
+        return out
+
 
 class DeviceSgd(DeviceOptimizer):
     kind = "sgd"

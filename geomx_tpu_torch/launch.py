@@ -106,6 +106,11 @@ def build_runtime(node: NodeId, config: Config, base_port: int = 9200,
                 role_obj.load_checkpoint(path)
                 print(f"{node}: resumed from {path} "
                       f"({len(role_obj.store)} keys)", flush=True)
+                # where the restored optimizer state lives
+                dev = role_obj._dev_opt
+                print(f"{node}: restored optimizer state: "
+                      + (dev.state_summary() if dev is not None
+                         else "opt_device_keys=0"), flush=True)
     elif node.role is Role.STANDBY_GLOBAL:
         from geomx_tpu_torch.kvstore.server import GlobalServer
 
@@ -549,6 +554,15 @@ def _worker_demo(po, kv, args, join_advertise=None):
 
         kv.worker.error_handler = _claim_poison_ack
 
+    log_fn = None
+    if args.log_every > 0:
+        # progress lines for harnesses that act mid-training (a kill
+        # once some rounds have landed): "<node>: round K loss=L"
+        def log_fn(step, loss, acc):
+            if (step + 1) % args.log_every == 0:
+                print(f"{po.node}: round {step + 1} loss={loss:.4f}",
+                      flush=True)
+
     def train(kv, params, it, steps, barrier_init):
         # HFA servers average WEIGHTS — pushing gradients at them (the
         # pre-r5 --hfa path) silently replaced the model with a mean
@@ -556,9 +570,9 @@ def _worker_demo(po, kv, args, join_advertise=None):
         if args.hfa:
             return run_worker_hfa(kv, params, grad_fn, it, steps,
                                   k1=args.hfa_k1,
-                                  barrier_init=barrier_init)
+                                  barrier_init=barrier_init, log_fn=log_fn)
         return run_worker(kv, params, grad_fn, it, steps,
-                          barrier_init=barrier_init)
+                          barrier_init=barrier_init, log_fn=log_fn)
     if joining:
         info = kv.join_party(advertise=join_advertise)
         print(f"{po.node}: joined as rank {info['rank']} "
@@ -643,6 +657,15 @@ def _worker_demo_lm(po, kv, args):
         shutdown_cluster(po)
 
 
+# the ESync workload's cap on a worker's local steps a round: the
+# planner's own bound (EsyncState.max_steps).  The JAX package's launcher
+# caps at 16, sized for a CPU host's tens of milliseconds a step; on the
+# card a fast worker's step is a few milliseconds, and a worker slowed by
+# 150 ms a step needs ~45 of them to reach the server when the slow one
+# does (the acceptance matrix's ESync case on an NVIDIA H100)
+ESYNC_MAX_LOCAL_STEPS = 64
+
+
 def _worker_demo_esync(po, kv, args):
     """ESync acceptance workload: the esync client loop with optional
     injected per-step heterogeneity, printing the per-round (assigned
@@ -682,7 +705,8 @@ def _worker_demo_esync(po, kv, args):
     rounds_info: list = []
     hist = run_worker_esync(kv, params, grad_fn, it, args.steps,
                             optimizer=opt, barrier_init=True,
-                            max_local_steps=16, rounds_out=rounds_info)
+                            max_local_steps=ESYNC_MAX_LOCAL_STEPS,
+                            rounds_out=rounds_info)
     if _drain_if_preempted(po, kv):
         return
     # steps= counts SYNC rounds (the --steps contract); local steps vary
@@ -754,75 +778,208 @@ def _worker_demo_staged(po, kv, args):
         shutdown_cluster(po)
 
 
+# ports this process has handed out: clusters started side by side (each
+# binds its span only once its processes are up) never share one
+_ISSUED_PORTS: set = set()
+_ISSUED_MU = threading.Lock()
+
+
 def free_base_port(span: int = 16) -> int:
     """A base port with ``span`` consecutive ports free to bind, found
     by a bind probe OUTSIDE the kernel's ephemeral range (an ephemeral
     port can be taken by any outgoing connection between the probe and
-    the bind)."""
+    the bind), none handed out before by this process."""
     import random
     import socket
 
     for _ in range(200):
         base = random.randrange(18000, 28000)
+        ports = set(range(base, base + span))
         socks = []
-        try:
-            for i in range(span):
-                s = socket.socket()
-                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-                s.bind(("127.0.0.1", base + i))
-                socks.append(s)
+        with _ISSUED_MU:
+            if ports & _ISSUED_PORTS:
+                continue
+            try:
+                for port in sorted(ports):
+                    s = socket.socket()
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                    s.bind(("127.0.0.1", port))
+                    socks.append(s)
+            except OSError:
+                continue
+            finally:
+                for s in socks:
+                    s.close()
+            _ISSUED_PORTS.update(ports)
             return base
-        except OSError:
-            continue
-        finally:
-            for s in socks:
-                s.close()
     raise RuntimeError("no free port span found")
+
+
+class LocalCluster:
+    """Local OS processes of one topology, each ``python -m
+    geomx_tpu_torch.launch --role ROLE`` with the cluster's common
+    arguments, their output read line by line as it comes (so a caller
+    can wait for a marker, kill a role and start its replacement while
+    the rest trains).  Keys name processes: a role, or any name given
+    to :meth:`spawn`; a killed process keeps its output under
+    ``KEY#killed<n>``."""
+
+    def __init__(self, common, env=None, cwd=None):
+        self.common = list(common)
+        self.env, self.cwd = env, cwd
+        self.procs = {}
+        self.lines = {}
+        self._readers = {}
+        self._killed = 0
+        self.optional = set()
+
+    def spawn(self, key: str, role=None, extra=(), optional=False):
+        """Start ``role`` (``key`` by default) with the common arguments
+        and ``extra``; its output collects under ``key``.  An
+        ``optional`` process is not waited for: :meth:`wait` gives it
+        ``grace_s`` once the others have exited."""
+        import subprocess
+
+        p = subprocess.Popen(
+            [sys.executable, "-m", "geomx_tpu_torch.launch", "--role",
+             role or key, *self.common, *extra], cwd=self.cwd,
+            env=self.env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        lines = []
+
+        def read():
+            for line in p.stdout:
+                lines.append(line)
+
+        reader = threading.Thread(target=read, daemon=True,
+                                  name=f"cluster-out-{key}")
+        reader.start()
+        self.procs[key], self.lines[key] = p, lines
+        self._readers[key] = reader
+        if optional:
+            self.optional.add(key)
+        return p
+
+    def output(self, key: str) -> str:
+        return "".join(self.lines[key])
+
+    def wait_output(self, key: str, pattern: str, timeout_s: float):
+        """The first match of the regex ``pattern`` in ``key``'s output
+        within ``timeout_s`` seconds, or None (also once it exited)."""
+        import re
+
+        deadline = time.monotonic() + timeout_s
+        while True:
+            m = re.search(pattern, self.output(key))
+            if m or time.monotonic() > deadline:
+                return m
+            if self.procs[key].poll() is not None:
+                self._readers[key].join(5)
+                return re.search(pattern, self.output(key))
+            time.sleep(0.05)
+
+    def kill(self, key: str) -> str:
+        """SIGKILL ``key``; its output moves to the returned key."""
+        p = self.procs.pop(key)
+        p.kill()
+        p.wait()
+        self._readers[key].join(5)
+        self._killed += 1
+        dead = f"{key}#killed{self._killed}"
+        self.procs[dead] = p
+        self.lines[dead] = self.lines.pop(key)
+        self._readers[dead] = self._readers.pop(key)
+        return dead
+
+    def wait(self, deadline_s: float, grace_s: float = 15.0) -> dict:
+        """Wait until every process has exited or ``deadline_s`` has
+        passed (an optional one: ``grace_s`` more once the others have
+        exited); a process still running then is killed and reported
+        with return code ``None``.  Returns ``{key: (returncode,
+        output)}``."""
+        deadline = time.monotonic() + deadline_s
+
+        def running(optional):
+            return any(p.poll() is None for k, p in self.procs.items()
+                       if (k in self.optional) == optional)
+
+        while time.monotonic() < deadline and running(False):
+            time.sleep(0.2)
+        deadline = min(deadline, time.monotonic() + grace_s)
+        while time.monotonic() < deadline and running(True):
+            time.sleep(0.2)
+        out = {}
+        for key, p in self.procs.items():
+            rc = p.poll()
+            if rc is None:
+                p.kill()
+                p.wait()
+            self._readers[key].join(5)
+            out[key] = (rc, self.output(key))
+        return out
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def run_local_cluster(parties: int, workers: int, extra_args=(),
                       env=None, deadline_s: float = 180.0,
-                      global_servers: int = 1, cwd=None) -> dict:
+                      global_servers: int = 1, cwd=None,
+                      standby_globals: int = 0, during=None) -> dict:
     """Every role of a ``parties`` × ``workers`` + global-tier topology
-    as local OS processes over loopback TCP (``python -m
-    geomx_tpu_torch.launch``, one process per role, as
-    ``scripts/run_cluster.sh`` runs the JAX package), on a free port
-    span.  Waits until every process has exited or ``deadline_s`` has
-    passed; a process still running then is killed and reported with
-    return code ``None``.  Returns ``{role: (returncode, output)}``; no
-    child outlives the call."""
-    import subprocess
-
+    (``global_servers`` shards; ``standby_globals`` hot standbys, rank K
+    backing shard K) as local OS processes over loopback TCP (one process
+    per role, as ``scripts/run_cluster.sh`` runs the JAX package), on a
+    free port span.  ``during(cluster)``, when given, runs once every
+    role is started, with the :class:`LocalCluster` (to wait for a
+    marker, kill a role, start a replacement or a joiner).  Then waits
+    until every process has exited or ``deadline_s`` (counted from the
+    start) has passed; a process still running then is killed and
+    reported with return code ``None``.  Returns ``{key: (returncode,
+    output)}``; no child outlives the call."""
     topo = Topology(num_parties=parties, workers_per_party=workers,
-                    num_global_servers=global_servers)
+                    num_global_servers=global_servers,
+                    num_standby_globals=standby_globals)
     roles = [str(n) for n in topo.all_nodes()]
     base = free_base_port(len(roles))
-    common = ["--parties", str(parties), "--workers", str(workers),
-              "--global-servers", str(global_servers),
-              "--base-port", str(base), *extra_args]
-    procs = {}
+    cluster = LocalCluster(
+        ["--parties", str(parties), "--workers", str(workers),
+         "--global-servers", str(global_servers),
+         "--standby-globals", str(standby_globals),
+         "--base-port", str(base), *extra_args], env=env, cwd=cwd)
+    t0 = time.monotonic()
     try:
         for r in roles:
-            procs[r] = subprocess.Popen(
-                [sys.executable, "-m", "geomx_tpu_torch.launch", "--role",
-                 r, *common], cwd=cwd, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
-        deadline = time.monotonic() + deadline_s
-        while (time.monotonic() < deadline
-               and any(p.poll() is None for p in procs.values())):
-            time.sleep(0.2)
-        out = {}
-        for r, p in procs.items():
-            rc = p.poll()
-            if rc is None:
-                p.kill()
-            out[r] = (rc, p.communicate()[0])
-        return out
+            cluster.spawn(r)
+        if during is not None:
+            during(cluster)
+        return cluster.wait(max(0.0, deadline_s - (time.monotonic() - t0)))
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        cluster.close()
+
+
+def _wait_at_gate(node: NodeId, cfg: Config, args) -> None:
+    """``--start-gate``: import what the role builds and create its
+    device's context (what takes seconds on a card), then wait for the
+    gate file; nothing is bound before it opens."""
+    import importlib
+
+    import torch
+
+    from geomx_tpu_torch.core.platform import resolve_device
+    from geomx_tpu_torch.kvstore.backend import resolve_merge_backend
+
+    importlib.import_module("geomx_tpu_torch.kvstore.server")
+    if node.role is Role.WORKER:
+        torch.zeros(1, device=resolve_device(args.device))
+    elif resolve_merge_backend(cfg) == "torch":  # the card's backend
+        torch.zeros(1, device=resolve_device(None))
+    print(f"{node}: waiting at {args.start_gate}", flush=True)
+    while not os.path.exists(args.start_gate):
+        time.sleep(0.01)
 
 
 def _check_device(node: NodeId, cfg: Config, args) -> None:
@@ -900,6 +1057,17 @@ def main(argv=None):
                          "instead of the static plan's slot")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="worker compute device: cuda (default) or cpu")
+    ap.add_argument("--log-every", type=int, default=0, metavar="N",
+                    help="harness hook, set by geomx_tpu_torch."
+                         "acceptance's failover cases to time the kill "
+                         "and compare losses: a CNN worker prints "
+                         "'round K loss=L' every N rounds (0 = off)")
+    ap.add_argument("--start-gate", default=None, metavar="PATH",
+                    help="harness hook, set by geomx_tpu_torch."
+                         "acceptance's failover case for its returning "
+                         "zombie: load the role's modules and its device, "
+                         "then wait for PATH to exist before building the "
+                         "runtime")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--workload", default="cnn", choices=["cnn", "lm"],
@@ -1049,6 +1217,8 @@ def main(argv=None):
     # refuse a missing card before any socket is bound: workers compute
     # on --device, servers merge on the resolved backend's device
     _check_device(node, cfg, args)
+    if args.start_gate:
+        _wait_at_gate(node, cfg, args)
     advertise = None
     if args.advertise:
         host, sep, port = args.advertise.rpartition(":")
@@ -1167,7 +1337,8 @@ def main(argv=None):
         if dev_opt is not None:
             feats.append(f"opt_device={dev_opt.kind} "
                          f"opt_device_ms={bs.get('opt_device_ms')} "
-                         f"d2h_bytes={bs.get('d2h_bytes')}")
+                         f"d2h_bytes={bs.get('d2h_bytes')} "
+                         f"{dev_opt.state_summary()}")
     # codec kernel observable: a kernel fired in this server process
     codec = _codec_launches(role_obj)
     if codec:

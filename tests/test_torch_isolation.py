@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 and its entry points run on CUDA unless the caller asks for the CPU.
 
-- every module of ``geomx_tpu_torch`` imports in a fresh interpreter
-  without pulling ``jax``, ``flax``, ``optax``, ``msgpack`` or
+- every module of ``geomx_tpu_torch`` (the static checkers of
+  ``analysis/`` among them) and ``chip_smoke.py`` import in a fresh
+  interpreter without pulling ``jax``, ``flax``, ``optax``, ``msgpack`` or
   ``geomx_tpu`` (the top-level name) into ``sys.modules`` (the machine
   with the card has no ``flax``, ``optax`` or ``msgpack``);
 - no source file of the package imports from ``geomx_tpu``;
@@ -35,6 +36,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "geomx_tpu_torch.kvstore.torch_backend" in mods
+    assert "geomx_tpu_torch.analysis" in mods
+    assert "geomx_tpu_torch.analysis.__main__" in mods
     # only what the port's imports bring in counts: a site customization
     # may have imported jax before the first line runs
     code = (
@@ -63,6 +66,31 @@ def test_no_source_file_imports_the_jax_package():
             if pat in text:
                 bad.append((str(p.relative_to(ROOT)), pat))
     assert not bad, bad
+
+
+def test_chip_smoke_imports_without_jax_or_the_jax_package():
+    """``chip_smoke.py`` (imported, not run) and the static checkers'
+    CLI pull in nothing of JAX or of the JAX package."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    for pat in ("from geomx_tpu.", "import geomx_tpu.",
+                "from geomx_tpu import", "import jax", "from jax"):
+        assert pat not in text, pat
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import chip_smoke\n"
+        "from geomx_tpu_torch.analysis.__main__ import main\n"
+        "assert main(['--list']) == 0\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m in ('jax', 'flax', 'optax', 'geomx_tpu')\n"
+        "             or m.startswith(('jax.', 'geomx_tpu.')))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "lock-discipline" in out.stdout
 
 
 @pytest.fixture
