@@ -279,7 +279,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the joins and the failover (whose joiner or zombie must come up
    within the cluster's remaining rounds) one at a time;
    each case's wall printed, each process's output kept in
-   ``chiprun_out/chip_smoke_accept_*.txt``.
+   ``chiprun_out/chip_smoke_accept_*.txt``;
+11. the backend lane (``tests/test_torch_runtime_lane_backend.py``):
+   the JAX package's 22 in-process runtime suites (kvstore, failover,
+   eviction, sharded merge, recovery, the sharded global tier, the
+   codecs, the adaptive WAN, partition, serve, the serving plane, obs,
+   the flight recorder, integrity, zero-copy, trace, stress, churn,
+   dynamic join, robustness, aux, ESync), rewritten to the port, run in
+   one pytest subprocess with ``GEOMX_MERGE_BACKEND=torch`` (every
+   server's state on the card) and both device stages pinned on; the
+   cases the lane leaves out are its lists' (``LEFT_OUT``, ``TIMING``;
+   the ``HEAVY`` 50M-element scale run of ``test_stress.py``, out of
+   tier-1 for its host memory, runs here); fails on any failed case or
+   a file with no case
+   run; prints each file's passed, failed and left-out counts and the
+   wall, and keeps the output and the JUnit file under
+   ``chiprun_out/chip_smoke_lane*``; in the same subprocess
+   ``tests/test_torch_mixed_sync.py`` on the card (MixedSync under 2bit
+   and bsc with DC-ASGD and the device Adam, and a 2bit partition
+   catch-up, the decoded pushes CUDA tensors), held to the numpy
+   backend.
 
 The three CUDA sources are built with ``nvcc`` at the start, in
 parallel; phase 2 waits for the codec library, the small one.
@@ -476,6 +495,10 @@ MERGE_SLOTS = 4
 # round 16; at 40 the wanted 16.0 lies more than two steps from the 0
 # that the int8 rung gives without its residual
 MERGE_EF_ROUNDS = 40
+# phase 11: the backend lane's pytest subprocess time limit, seconds, and
+# the port's MixedSync tests it runs beside the lane's files
+LANE_TIMEOUT_S = 600
+MIXED_SYNC_TESTS = "tests/test_torch_mixed_sync.py"
 # phase 10: clusters of the untimed acceptance cases run at once
 ACCEPT_PARALLEL = 4
 
@@ -1121,6 +1144,59 @@ def check_flash_ordered(dev) -> dict:
         torch.cuda.empty_cache()
     assert torch.are_deterministic_algorithms_enabled() == was
     return out
+
+
+def check_config_deterministic(dev) -> dict:
+    """A worker's ``Config.deterministic`` step context
+    (``training.step_order``), with PyTorch's global switch off: two
+    autograd backwards of the bf16 flash call at the MFU shape take the
+    fixed-order kernel (``flash_bwd_ordered`` counted twice, the default
+    path not at all) and give bitwise equal dQ, equal to the ordered
+    kernel called directly."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from geomx_tpu_torch.core.config import Config
+    from geomx_tpu_torch.ops import flash_attention as FA
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+    from geomx_tpu_torch.training import step_order
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    shape = FLASH_MFU[0]
+    rng = np.random.default_rng(sum(shape) + 1)
+    q, k, v, do = (torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+        .to(dev, torch.bfloat16) for _ in range(4))
+    kv = SimpleNamespace(config=Config(deterministic=True))
+    before = FK.launches()
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with step_order(kv):
+            o = FA.flash_attention(*leaves)
+        runs.append(torch.autograd.grad(o, leaves, do))
+    torch.cuda.synchronize()
+    after = FK.launches()
+    ordered = after["flash_bwd_ordered"] - before["flash_bwd_ordered"]
+    default = after["flash_bwd"] - before["flash_bwd"]
+    assert (ordered, default) == (2, 0), \
+        f"Config.deterministic took {ordered} ordered, {default} default"
+    same = torch.equal(runs[0][0].view(torch.int16),
+                       runs[1][0].view(torch.int16))
+    assert same, "Config.deterministic: dQ moved between two runs"
+    scale = 1.0 / math.sqrt(shape[-1])
+    o, lse = FK.flash_fwd(q, k, v, scale)
+    direct = FK.flash_bwd(q, k, v, o, lse, do, scale, ordered=True)[0]
+    assert torch.equal(direct.view(torch.int16),
+                       runs[0][0].view(torch.int16)), \
+        "Config.deterministic's dQ is not the ordered kernel's"
+    log(f"Config.deterministic {shape} bf16, global switch off: 2 "
+        f"backwards through flash_bwd_ordered, dQ bitwise equal")
+    del q, k, v, do, runs, o, lse, direct
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "ordered_launches": ordered,
+            "default_launches": default, "dq_bitwise_equal": same}
 
 
 def _flash_launch_path(q, k, v, o, lse, do, scale) -> dict:
@@ -3163,6 +3239,69 @@ def all_launches() -> dict:
     return out
 
 
+# ---- phase 11: the backend lane on the card -----------------------------
+
+def _lane_runner():
+    """``tests/test_torch_runtime_lane_backend.py``, loaded by its path:
+    a ``tests`` package installed on the machine would shadow the
+    repository's namespace package."""
+    import importlib.util
+
+    name = "torch_runtime_lane"
+    if name not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "test_torch_runtime_lane_backend.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def run_backend_lane() -> dict:
+    """11: the JAX package's in-process runtime suites against the port
+    with every server on the card, and C7's MixedSync and catch-up tests
+    (``tests/test_torch_mixed_sync.py`` under
+    ``GEOMX_MIXED_SYNC_BACKEND=torch``) beside them, in one pytest
+    subprocess (CUDA starts once)."""
+    import torch
+
+    lane_mod = _lane_runner()
+    files = lane_mod.FILES
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "chiprun_out")
+    work = os.path.join(out_dir, "chip_smoke_lane")
+    os.makedirs(work, exist_ok=True)
+    res = lane_mod.run_lane(
+        files, "torch", workdir=work, heavy=True, timeout=LANE_TIMEOUT_S,
+        extra=(MIXED_SYNC_TESTS,),
+        extra_env={"GEOMX_MIXED_SYNC_BACKEND": "torch"})
+    with open(os.path.join(out_dir, "chip_smoke_lane.txt"), "w") as f:
+        f.write(res.output)
+    per_file = res.per_file()
+    mixed = os.path.basename(MIXED_SYNC_TESTS)[len("test_"):-len(".py")]
+    for name in files + (mixed,):
+        row = per_file.get(name, {})
+        log(f"lane {name}: {row.get('passed', 0)} passed, "
+            f"{row.get('failed', 0)} failed, {row.get('skipped', 0)} "
+            f"skipped, {row.get('left_out', 0)} left out")
+    log(f"lane on the card (GEOMX_MERGE_BACKEND=torch): {len(files)} "
+        f"files and {MIXED_SYNC_TESTS}, "
+        f"{sum(r['passed'] for r in per_file.values())} passed, "
+        f"{len(res.failed())} failed, rc {res.rc}, {res.wall_s:.1f} s")
+    assert res.rc == 0 and not res.failed(), \
+        f"backend lane on the card: rc {res.rc}, failed {res.failed()}\n" \
+        + res.output[-4000:]
+    empty = [n for n in files + (mixed,)
+             if not per_file.get(n, {}).get("passed")]
+    assert not empty, f"lane files with no case run: {empty}"
+    skipped = {n: r["skipped"] for n, r in per_file.items() if r["skipped"]}
+    assert not skipped, f"lane cases skipped on the card: {skipped}"
+    torch.cuda.empty_cache()
+    return {"files": per_file, "failed": res.failed(), "rc": res.rc,
+            "seconds": res.wall_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -3201,6 +3340,7 @@ def main() -> int:
 
     flash = check_flash(dev)
     flash["fixed_order"] = check_flash_ordered(dev)
+    flash["config_deterministic"] = check_config_deterministic(dev)
     log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
     block = check_block(dev)
     log(f"phase 3b done in {time.perf_counter() - t0:.1f} s")
@@ -3271,6 +3411,9 @@ def main() -> int:
     accept = run_acceptance()
     log(f"phase 10 done in {time.perf_counter() - t0:.1f} s "
         f"({accept['seconds']:.1f} s)")
+    lane = run_backend_lane()
+    log(f"phase 11 done in {time.perf_counter() - t0:.1f} s "
+        f"({lane['seconds']:.1f} s)")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -3367,7 +3510,7 @@ def main() -> int:
               "moe_lm": moe, "zoo": zoo, "int8": int8, "parity": par,
               "parallel": {"tp": tp, "pp": pp, "dp": dpr,
                            "merge_rung": rung},
-              "acceptance": accept,
+              "acceptance": accept, "backend_lane": lane,
               "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -440,6 +440,13 @@ class BroadcastCompressor:
         # weakref: a strong ref would pin the previous round's full
         # store array (~200 MB at the 50M hot path) until next compress
         self._payload_cache: Dict[int, tuple] = {}
+        # key -> (weakref(weights), ver, lineage) of the last dense
+        # resync: subscribers resynced to the SAME weights array at the
+        # same version hold bit-identical views, so they share its
+        # lineage (and each round's one top-k).  Forking each onto its
+        # own lineage gave them separately sampled supports and left
+        # FSA replicas apart after a server restart
+        self._resync_lineage: Dict[int, tuple] = {}
         self._rng = np.random.default_rng(1234)  # sampled-threshold
         self.resyncs = 0  # forced dense resyncs (observability)
 
@@ -456,6 +463,7 @@ class BroadcastCompressor:
         subscribers never held)."""
         self.ensure_base(key, new_init)
         self._payload_cache.pop(key, None)
+        self._resync_lineage.pop(key, None)
         for pair in [p for p in self._view if p[1] == key]:
             del self._view[pair]
         for pair in [p for p in self._ver if p[1] == key]:
@@ -523,12 +531,22 @@ class BroadcastCompressor:
             w = np.ascontiguousarray(weights, dtype=np.float32)
             self._view[(subscriber, key)] = w.copy()
             self._ver[(subscriber, key)] = new_ver
-            # fork onto a unique lineage: this subscriber's future
+            # fork onto a resync lineage: this subscriber's future
             # versions may numerically collide with sparse-path peers',
             # and the payload cache must never treat that as shared
             # content (confirmed corruption: one lost response -> peer's
-            # delta applied to the resynced base, permanently wrong)
-            self._lineage[(subscriber, key)] = f"resync{self.resyncs}"
+            # delta applied to the resynced base, permanently wrong).
+            # The lineage is shared only with subscribers resynced to
+            # this very weights array at this version: the same view
+            last = self._resync_lineage.get(key)
+            if (last is not None and last[0]() is weights
+                    and last[1] == new_ver):
+                lineage = last[2]
+            else:
+                lineage = f"resync{self.resyncs}"
+                self._resync_lineage[key] = (weakref.ref(weights),
+                                             new_ver, lineage)
+            self._lineage[(subscriber, key)] = lineage
             return w, "f32", new_ver
         # same-round payload reuse across subscribers (the 50M MultiGPS
         # hot path, VERDICT r4 item 4): subscribers on the SAME lineage

@@ -110,11 +110,11 @@ def cuda_pieces(g, r, packed, n: int) -> dict:
             "whole call": lambda: Q.quantize_2bit(g, r, THRESHOLD, LAYOUT),
             "wrapper": lambda: C.quantize_2bit(g, r, t, LAYOUT),
             "dispatcher checks": lambda: g.is_cuda,
-            "tensor checks": lambda: (C._layout(LAYOUT),
-                                      C._check_pair(g, r)),
-            "allocations": lambda: (
-                torch.empty(nb, dtype=torch.uint8, device=dev),
-                torch.empty(n, dtype=torch.float32, device=dev)),
+            "tensor checks": lambda: (
+                C._layout(LAYOUT),
+                C._check_f32(("grad", g), ("residual", r))),
+            "allocations": lambda: (g.new_empty(nb, dtype=torch.uint8),
+                                    torch.empty_like(r)),
             "stream handle": lambda: torch._C._cuda_getCurrentRawStream(
                 dev.index),
             "stream object": lambda: torch.cuda.current_stream(
@@ -129,10 +129,9 @@ def cuda_pieces(g, r, packed, n: int) -> dict:
                                                     LAYOUT),
             "wrapper": lambda: C.dequantize_2bit(packed, n, t, LAYOUT),
             "dispatcher checks": lambda: packed.is_cuda,
-            "tensor checks": lambda: (C._layout(LAYOUT),
-                                      C._check_codes(packed, n, False)),
-            "allocations": lambda: torch.empty(n, dtype=torch.float32,
-                                               device=dev),
+            "tensor checks": lambda: C._check_codes(packed, n,
+                                                    C._layout(LAYOUT)),
+            "allocations": lambda: packed.new_empty(n, dtype=torch.float32),
             "stream handle": lambda: torch._C._cuda_getCurrentRawStream(
                 dev.index),
             "stream object": lambda: torch.cuda.current_stream(
@@ -148,9 +147,8 @@ def cuda_pieces(g, r, packed, n: int) -> dict:
             "dispatcher checks": lambda: g.is_cuda,
             "tensor checks": lambda: C._check_f32(
                 ("velocity", v), ("accum", r), ("grad", g)),
-            "allocations": lambda: (
-                torch.empty(n, dtype=torch.float32, device=dev),
-                torch.empty(n, dtype=torch.float32, device=dev)),
+            "allocations": lambda: (torch.empty_like(v),
+                                    torch.empty_like(r)),
             "stream handle": lambda: torch._C._cuda_getCurrentRawStream(
                 dev.index),
             "ctypes call": lambda: lib.geo_dgc_update(

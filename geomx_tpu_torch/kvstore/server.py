@@ -3696,12 +3696,7 @@ class GlobalServer:
         with self._mu:
             for k, v in kvs.slices():
                 k = int(k)
-                grad = v.astype(np.float32)  # copy: donated below
-                if self._dev_opt is None and not isinstance(grad,
-                                                            np.ndarray):
-                    # device-decoded push meeting a HOST optimizer
-                    # engine (DCASGD / opt stage off): one explicit D2H
-                    grad = np.asarray(grad)
+                grad = self._async_grad(v)
                 if self._dev_opt is not None:
                     # async tier on the device stage: one H2D of the
                     # push, jitted update, weights stay device-resident
@@ -3743,6 +3738,19 @@ class GlobalServer:
         if dissem is not None:
             self.ts_inter.disseminate_async(*dissem, Cmd.TS_AUTOPULL)
 
+    def _async_grad(self, v):
+        """One key's pushed gradient as the async / catch-up update takes
+        it, private to the update (which may donate it).  A push the
+        codec stage decoded is a fresh device tensor owned by this push:
+        the device optimizer stage consumes it where it lies, and a HOST
+        optimizer engine (DCASGD, which never gets a device stage) gets
+        one explicit, billed D2H — never an implicit numpy conversion,
+        which a CUDA tensor refuses.  A host push is copied to f32."""
+        if self._codec_stage is not None and self._codec_stage.is_device(v):
+            return v if self._dev_opt is not None \
+                else self._codec_stage.to_host(v)
+        return v.astype(np.float32)  # copy: donated below
+
     def _push_catchup(self, msg: Message, kvs: KVPairs):
         """Merge a healed party's staleness-stamped catch-up delta
         (Cmd.CATCHUP) through the SAME optimizer path as a live async
@@ -3779,10 +3787,7 @@ class GlobalServer:
                 k = int(k)
                 if k not in self.store:
                     continue  # key retired while the party was dark
-                grad = v.astype(np.float32)
-                if self._dev_opt is None and not isinstance(grad,
-                                                            np.ndarray):
-                    grad = np.asarray(grad)  # host optimizer engine
+                grad = self._async_grad(v)
                 if self._dev_opt is not None:
                     new_w = self._dev_opt.step(
                         k, self.store.raw(k), grad, 1.0)

@@ -32,7 +32,9 @@ identity.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -102,20 +104,48 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, sm_scale: float
+                        do: torch.Tensor, sm_scale: float,
+                        ordered: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)``: the CUDA kernels for CUDA tensors, else the
-    plain version."""
+    """``(dq, dk, dv)``: the CUDA kernels for CUDA tensors (in bf16 with
+    dQ summed in a fixed order when ``ordered``), else the plain
+    version, whose order is fixed anyway."""
     if q.is_cuda:
         return kernels.flash_bwd(q.contiguous(), k.contiguous(),
                                  v.contiguous(), o.contiguous(),
-                                 lse.contiguous(), do.contiguous(), sm_scale)
+                                 lse.contiguous(), do.contiguous(), sm_scale,
+                                 ordered=ordered)
     return flash_attention_bwd_ref(q, k, v, o, lse, do, sm_scale)
+
+
+_ORDER = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_order_backward(enabled: bool = True):
+    """While open (on this thread), :func:`flash_attention` calls record
+    that their backward must repeat bit for bit: the bf16 kernel then
+    sums dQ over the key tiles in a fixed order (``Config.deterministic``
+    on the worker side; PyTorch's global deterministic switch has the
+    same effect everywhere).  The choice is taken in the forward, so it
+    holds wherever autograd runs the backward."""
+    prev = getattr(_ORDER, "on", False)
+    _ORDER.on = bool(enabled)
+    try:
+        yield
+    finally:
+        _ORDER.on = prev
+
+
+def fixed_order() -> bool:
+    """Whether :func:`fixed_order_backward` is open on this thread."""
+    return getattr(_ORDER, "on", False)
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal attention whose forward and backward are the dispatchers
-    above; saves ``(q, k, v, o, lse)`` for the backward."""
+    above; saves ``(q, k, v, o, lse)`` and :func:`fixed_order` for the
+    backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
@@ -125,12 +155,14 @@ class FlashAttention(torch.autograd.Function):
         o, lse = flash_attention_fwd(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale = sm_scale
+        ctx.ordered = fixed_order()
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.sm_scale,
+                                         ordered=ctx.ordered)
         return dq, dk, dv, None
 
 

@@ -20,7 +20,9 @@ kernels under the name with ``_f32``):
   In bf16 that is the delta pass (which also zeroes an f32 dQ scratch),
   one kernel that forms dK, dV and each key tile's dQ and adds the dQ
   into the scratch, and the pass that rounds dQ to bf16; in f32 the
-  delta pass, the dK/dV kernel and the dQ kernel.  While
+  delta pass, the dK/dV kernel and the dQ kernel.  When the caller
+  asks (``ordered=True``: ``Config.deterministic`` through
+  ``ops.flash_attention.fixed_order_backward``) or while
   ``torch.are_deterministic_algorithms_enabled()``, the bf16 kernel adds
   the dQ partials in ascending key tiles (counted under
   ``flash_bwd_ordered``), so that two runs give the same bits; otherwise
@@ -184,13 +186,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-              sm_scale: float
+              sm_scale: float, ordered: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal attention backward on the card: ``(dq, dk, dv)`` in q's
     dtype, from the forward's ``o`` and ``lse`` and the output grad.  In
     bf16 dQ is summed over the key tiles in an f32 scratch (zeroed by the
     delta pass) and rounded once by a last pass; in ascending key tiles
-    while PyTorch's deterministic switch is on."""
+    when ``ordered`` or while PyTorch's deterministic switch is on."""
     (B, T, H, D), ptrs = _check(q, (("k", k), ("v", v), ("o", o),
                                     ("do", do)))
     _check_lse(lse, q, B, H, T)
@@ -201,7 +203,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # start), delta f32 [B, H, T], and on the fixed-order path the int32
     # turns of each (b*h, 64-query step, consumer warpgroup)
     f32 = q.dtype is _F32
-    ordered = not f32 and torch.are_deterministic_algorithms_enabled()
+    ordered = not f32 and (ordered
+                           or torch.are_deterministic_algorithms_enabled())
     n_acc = 0 if f32 else B * T * H * D
     n_turns = B * H * -(-T // 64) * 2 if ordered else 0
     scratch = torch.empty(n_acc + B * H * T + n_turns, dtype=_F32,

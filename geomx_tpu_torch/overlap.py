@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from geomx_tpu_torch.kvstore.client import WorkerKVStore
+from geomx_tpu_torch.training import step_order
 
 
 def _stage_fwd(f: Callable) -> Callable:
@@ -262,10 +263,13 @@ def run_worker_overlapped(
                 _adopt_pulled(i)
 
         x, y = _to_device(x, devs[0]), _to_device(y, devs[-1])
-        logits, residuals = model.forward(stage_params, x,
-                                          pre_stage=pre_stage)
-        loss, acc, g_logits = model.loss_and_logit_grad(logits, y)
-        model.backward(residuals, g_logits, _push_and_pull_stage)
+        # the backward recomputes each stage's forward: both run under
+        # Config.deterministic's fixed-order flash backward
+        with step_order(kv):
+            logits, residuals = model.forward(stage_params, x,
+                                              pre_stage=pre_stage)
+            loss, acc, g_logits = model.loss_and_logit_grad(logits, y)
+            model.backward(residuals, g_logits, _push_and_pull_stage)
         round_no += 1
         history.append((float(loss), float(acc)))
         if log_fn is not None:

@@ -56,6 +56,17 @@ def load_params(path: str, device=None) -> "OrderedDict[str, torch.Tensor]":
     return OrderedDict((n, t.to(dev)) for n, t in host.items())
 
 
+def step_order(kv):
+    """The context a worker's grad step runs in: under
+    ``Config.deterministic`` flash attention's bf16 backward sums dQ in a
+    fixed order, so the step's gradients repeat bit for bit (the merge
+    side is numpy under that flag already)."""
+    from geomx_tpu_torch.ops.flash_attention import fixed_order_backward
+
+    return fixed_order_backward(
+        bool(getattr(getattr(kv, "config", None), "deterministic", False)))
+
+
 def _preempt_noticed(kv) -> bool:
     """True once a spot-preemption notice landed on this worker: the
     loop finishes its in-flight step, then stops pushing."""
@@ -126,7 +137,7 @@ def run_worker(
         scale = 1.0 / kv.num_workers if normalize else 1.0
         m.step_start()
         with kv.trace_round(step):
-            with m.phase("grad"):
+            with m.phase("grad"), step_order(kv):
                 loss, acc, grads = grad_fn(params, x, y)
                 # one D2H per leaf, which also waits for the backward
                 # pass, so the phase split is honest
@@ -202,7 +213,7 @@ def run_worker_hfa(
         if step >= steps or _preempt_noticed(kv):
             break
         m.step_start()
-        with m.phase("grad"):
+        with m.phase("grad"), step_order(kv):
             loss, acc, grads = grad_fn(params, x, y)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             params = local.apply_updates(params, updates)
@@ -300,7 +311,7 @@ def run_worker_esync(
         m.step_start()
         t0 = time.perf_counter()
         ran = 0
-        with m.phase("grad"):
+        with m.phase("grad"), step_order(kv):
             for _ in range(local_steps):
                 try:
                     x, y = next(it)

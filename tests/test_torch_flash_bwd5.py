@@ -321,3 +321,98 @@ def test_merged_checks_pass_and_give_the_shape_and_addresses():
 def test_lse_check_raises(lse, err, match):
     with pytest.raises(err, match=match):
         K._check_lse(lse, _OnCard(_Q), 1, 1, 4)
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("loop", ["fsa", "hfa", "overlapped"])
+def test_config_deterministic_takes_the_fixed_order_backward(
+        monkeypatch, loop, deterministic):
+    """``Config.deterministic`` reaches a worker's flash backward with
+    PyTorch's global switch off: every backward of a bf16 attention step
+    run by the FSA loop, the HFA loop or the staged (P3) loop, whose
+    backward recomputes the forward, asks for the fixed-order path
+    exactly when the flag is set (on the card the bf16 kernel then sums
+    dQ in ascending key tiles; here the plain version runs)."""
+    from geomx_tpu_torch import overlap, training
+    from geomx_tpu_torch.core.config import Config, Topology
+    from geomx_tpu_torch.kvstore import Simulation
+
+    asked = []
+    plain = FA.flash_attention_bwd
+
+    def recording_bwd(*args, ordered=False):
+        asked.append(ordered)
+        return plain(*args, ordered=ordered)
+
+    monkeypatch.setattr(FA, "flash_attention_bwd", recording_bwd)
+    assert not torch.are_deterministic_algorithms_enabled()
+    shape = (1, 16, 2, 64)
+    x = torch.from_numpy(_inputs(shape, 3)[0]).to(torch.bfloat16)
+
+    def attend(p, x):
+        q = x * p["w"].to(torch.bfloat16)
+        return FA.flash_attention(q, x, x)
+
+    def grad_fn(p, x, _y):
+        p = {n: t.detach().requires_grad_(True) for n, t in p.items()}
+        loss = attend(p, x).float().square().mean()
+        (g,) = torch.autograd.grad(loss, [p["w"]])
+        return loss.detach(), torch.tensor(0.0), {"w": g}
+
+    steps = 2
+    sim = Simulation(Config(
+        topology=Topology(num_parties=1, workers_per_party=1),
+        deterministic=deterministic, use_hfa=loop == "hfa",
+        merge_backend="numpy"))
+    try:
+        kv = sim.all_workers()[0]
+        kv.set_optimizer({"type": "sgd", "lr": 0.1})
+        params = {"w": torch.ones(shape[-1])}
+        data = [(x, torch.zeros(1))] * steps
+        if loop == "fsa":
+            training.run_worker(kv, params, grad_fn, data, steps,
+                                barrier_init=False)
+        elif loop == "hfa":
+            training.run_worker_hfa(kv, params, grad_fn, data, steps, k1=1,
+                                    barrier_init=False)
+        else:
+            model = overlap.StagedModel(
+                [attend], lambda out, _y: (out.float().square().mean(),
+                                           torch.tensor(0.0)))
+            overlap.run_worker_overlapped(kv, model, [params], data, steps,
+                                          barrier_init=False)
+    finally:
+        sim.shutdown()
+    assert asked == [deterministic] * steps
+    assert not FA.fixed_order()
+
+
+@pytest.mark.cuda
+def test_config_deterministic_reproducible_on_the_card(card):
+    """Under a worker's ``Config.deterministic`` step context, with
+    PyTorch's global switch off, two autograd backwards of the bf16
+    flash call at the MFU shape give bitwise equal dQ through the
+    fixed-order kernel (counted as ``flash_bwd_ordered``)."""
+    from types import SimpleNamespace
+
+    from geomx_tpu_torch.core.config import Config
+    from geomx_tpu_torch.training import step_order
+
+    shape = (4, 2048, 16, 128)
+    q, k, v, w = (torch.from_numpy(a).to(card, torch.bfloat16)
+                  for a in _inputs(shape, 11))
+    assert not torch.are_deterministic_algorithms_enabled()
+    kv = SimpleNamespace(config=Config(deterministic=True))
+    before = K.launches()
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with step_order(kv):
+            o = FA.flash_attention(*leaves)
+        runs.append(torch.autograd.grad(o, leaves, w))
+    torch.cuda.synchronize()
+    after = K.launches()
+    assert after["flash_bwd_ordered"] - before["flash_bwd_ordered"] == 2
+    assert after["flash_bwd"] == before["flash_bwd"]
+    assert torch.equal(runs[0][0].view(torch.int16),
+                       runs[1][0].view(torch.int16))

@@ -230,3 +230,58 @@ def test_launcher_roles_raise_without_cuda_unless_cpu(no_cuda):
         _check_device(NodeId.parse(role),
                       Config(topology=topo, merge_backend=backend),
                       Namespace(device=device))
+
+
+LANE_MODULES = ("tests.test_torch_runtime_lane_backend",
+                "tests.test_torch_runtime_lane_serve",
+                "tests.test_torch_runtime_lane_churn",
+                "tests.test_torch_mixed_sync",
+                "tests.test_torch_backend_runtime")
+
+
+def test_backend_lane_imports_neither_jax_nor_the_jax_package():
+    """The backend lane's runner and the port tests ``chip_smoke.py``
+    phase 11 runs on the card import nothing of JAX or of the JAX
+    package, and the conftest the lane writes imports no ``jax``."""
+    import ast
+
+    for mod in LANE_MODULES:
+        text = (ROOT / (mod.replace(".", "/") + ".py")).read_text()
+        for node in ast.walk(ast.parse(text)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "flax", "optax", "geomx_tpu"), \
+                    (mod, name)
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {LANE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tests.test_torch_runtime_lane_backend import lane_conftest\n"
+        "text = lane_conftest()\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m in ('jax', 'flax', 'optax', 'geomx_tpu')\n"
+        "             or m.startswith(('jax.', 'geomx_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print(text)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    conftest = ast.parse(out.stdout)
+    for node in ast.walk(conftest):
+        if isinstance(node, ast.Import):
+            assert all(not a.name.startswith(("jax", "geomx_tpu."))
+                       or a.name.startswith("geomx_tpu_torch")
+                       for a in node.names), ast.dump(node)
+        if isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            assert not mod.startswith("jax") and not (
+                mod.startswith("geomx_tpu")
+                and not mod.startswith("geomx_tpu_torch")), mod
+    assert "thread_leak_guard" in out.stdout
