@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    Each kernel's event time must be below its plain version's and below
    the event time of the Triton kernel it replaced, as last measured
    (``TRITON_LAST_MS``): at 401,408 for all three, and on the sweep
-   (the median) for quantize and dequantize;
+   (the median) for quantize and dequantize; beside each gate the
+   kernels' time replayed from a ``torch.cuda.CUDAGraph`` capture
+   (printed, not gated);
 3. flash attention — the CUDA forward and backward kernels (built with
    ``nvcc`` for sm_90a from ``geomx_tpu_torch/csrc/``; bf16 on the
    tensor cores, f32 on them too as three TF32 products of split
@@ -298,10 +300,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``tests/test_torch_mixed_sync.py`` on the card (MixedSync under 2bit
    and bsc with DC-ASGD and the device Adam, and a 2bit partition
    catch-up, the decoded pushes CUDA tensors), held to the numpy
-   backend.
+   backend;
+12. the JAX repo's operator scripts and slow cases on the card: 12a
+   every ``scripts/run_*.sh`` the scripts lane
+   (``tests/test_torch_scripts_lane.py``) marks to run — the ten
+   reference configs on ``run_cluster.sh`` (2 × 2 + 1, 6 steps: vanilla,
+   bsc, DGT, fp16, HFA, MPQ, mixed sync, two global servers, P3,
+   TSEngine), the serve, integrity, partition, churn, postmortem,
+   status, shard-chaos and adaptive-WAN tours, the LM over TCP and the
+   ESync preset — rewritten onto the port with nothing added (every
+   role on the card, the servers on the torch backend), each on its
+   own port range, in the background from the end of phase 3b (phases
+   4-10 gate no time) until phase 10's timed cases, all but the tours
+   of ``SCRIPTS_QUIET`` ``SCRIPT_STREAMS`` at once; after phase 11 the
+   quiet tours, the sequences of ``QUIET_STREAMS`` side by side, then
+   ``QUIET_ALONE`` alone; each held to
+   its own exit code and assertions and every launched cluster to its
+   exit lines (every server ``merge_backend=torch``, every worker
+   ``steps=``), each local server of the bsc config to 60 DGC updates
+   and of the mpq config to one for each BSC pick; each script's wall,
+   codec launches and output printed (output and a timeline of its
+   processes' log lines in ``chiprun_out/chip_smoke/script_*.txt``);
+   12b ``geomx_tpu_torch/examples/trace_demo.py`` (the counterpart of
+   ``scripts/run_trace_demo.sh``) on the card, its critical-path report
+   printed.  The backend lane's slow mode (the JAX suites' soak and kill
+   cases) does not fit the call's time: ``python3 chip_smoke.py
+   --slow-lane`` runs it on the card (``run_slow_lane``: each case in
+   its own pytest subprocess, ``GEOMX_MERGE_BACKEND=torch``, 0 failed,
+   0 skipped).
 
 The three CUDA sources are built with ``nvcc`` at the start, in
-parallel; phase 2 waits for the codec library, the small one.
+parallel; phase 2 checks the codec kernels as soon as the codec library
+is built, then waits for every build before it times anything (C6).
+``python3 chip_smoke.py --c6-probe`` times phase 2 in the old order
+(builds still running, each batch logged with the builds then running)
+and again after the join.
 
 Prints, before the last line, the kernel table as one JSON object, and
 as the last line ``{"ok": true, "device": {...}}``.  Writes the kernel
@@ -501,6 +534,24 @@ LANE_TIMEOUT_S = 600
 MIXED_SYNC_TESTS = "tests/test_torch_mixed_sync.py"
 # phase 10: clusters of the untimed acceptance cases run at once
 ACCEPT_PARALLEL = 4
+# phase 12: scripts run at once on disjoint port ranges, a script's time
+# limit (its own waits are its own), a slow case's limit, and each
+# script's wall on the card (the pool's order)
+SCRIPT_STREAMS = 3
+# tours that failed beside other clusters on the card: after phase 11,
+# QUIET_STREAMS (each a sequence) side by side, then the tours of
+# QUIET_ALONE one at a time with nothing else running
+QUIET_STREAMS = (("run_serve_demo.sh", "run_adaptive_demo.sh"),
+                 ("run_status_demo.sh", "run_postmortem_demo.sh"))
+QUIET_ALONE = ("run_churn_demo.sh",)
+SCRIPTS_QUIET = tuple(n for seq in QUIET_STREAMS for n in seq) + QUIET_ALONE
+SCRIPT_TIMEOUT_S = 420
+SLOW_CASE_TIMEOUT_S = 300
+SCRIPT_WALL_HINT_S = {      # each alone on an H100 80GB HBM3
+    "run_serve_demo.sh": 154.8, "run_churn_demo.sh": 100.0,
+    "run_postmortem_demo.sh": 80.8, "run_integrity_demo.sh": 77.2,
+    "run_status_demo.sh": 71.1, "run_partition_demo.sh": 61.7,
+    "run_p3.sh": 32.7, "run_multi_gps.sh": 28.0}
 
 
 def log(msg: str) -> None:
@@ -719,13 +770,42 @@ def _below_gates(what: str, ms: float, plain_ms: float,
         f"{plain_ms:.4f} ms and the {replaced} kernel's {replaced_ms:.4f} ms")
 
 
-def time_kernels(dev, sizes, iters_for) -> dict:
+def _nvcc_running(builds) -> list:
+    """The CUDA builds still running (``nvcc`` on the host's cores)."""
+    return sorted(n for n, f in (builds or {}).items() if not f.done())
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """CUDA-event time (ms) of one replay of ``fn`` captured in a
+    ``torch.cuda.CUDAGraph``: the kernels without the host's launch
+    path.  The capture calls the wrappers once more; their launch counts
+    are not read here."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # warm: allocator and libraries
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = _time_ms(g.replay, iters)
+    del g
+    return ms
+
+
+def time_kernels(dev, sizes, iters_for, builds=None, gate=True) -> dict:
     """At each size: CUDA-event times of the CUDA quantize, dequantize
     and DGC update (out of place and in place) and of their plain
     versions, and of the three in-place torch operations of the DGC
     update, warm in L2 where the tensors fit (the codec reads the
     accumulator the merge just wrote); then each kernel's device time a
-    call (one profiler window, 10 calls of each)."""
+    call (one profiler window, 10 calls of each).  At ``MAIN_N`` also
+    each kernel's time replayed from a CUDA graph, printed beside its
+    gate.  ``builds``: the CUDA builds' futures, whose state is logged
+    at each size (C6); ``gate=False`` (the C6 probe) logs the gates
+    without asserting them."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
@@ -737,6 +817,7 @@ def time_kernels(dev, sizes, iters_for) -> dict:
         g, r = _inputs(n, dev, seed=7)
         v = r * 3.0
         packed, _ = C.quantize_2bit(g, r, THRESHOLD, lay)
+        running = _nvcc_running(builds)
         vv, uu = v.clone(), r.clone()
         it = iters_for(n)
         calls = {
@@ -751,8 +832,12 @@ def time_kernels(dev, sizes, iters_for) -> dict:
                 lambda: Q.dgc_update_ref(v, r, g, MOMENTUM)),
         }
         out[n] = {name: {"ms": _time_ms(call, it),
-                         "plain_ms": _time_ms(plain, it)}
+                         "plain_ms": _time_ms(plain, it),
+                         "nvcc_running": running}
                   for name, (call, plain) in calls.items()}
+        if n == MAIN_N:
+            for name, (call, _) in calls.items():
+                out[n][name]["graph_ms"] = _graph_ms(call, it)
 
         def torch_inplace():
             vv.mul_(MOMENTUM).add_(g)
@@ -785,12 +870,19 @@ def time_kernels(dev, sizes, iters_for) -> dict:
                    f"{rec['torch_inplace_ms']:.4f} ms"
                    if name == "dgc_update" else "")
                 + f"; plain {rec['plain_ms']:.4f} ms, bound "
-                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})"
+                + (f"; CUDA graph {rec['graph_ms']:.4f} ms"
+                   if "graph_ms" in rec else "")
+                + f"; nvcc running: {rec['nvcc_running'] or 'none'}")
         del g, r, v, vv, uu, packed
         torch.cuda.empty_cache()
     for name, rec in out[MAIN_N].items():
-        _below_gates(f"{name} n={MAIN_N}", rec["ms"], rec["plain_ms"],
-                     TRITON_LAST_MS[name])
+        log(f"gate {name} n={MAIN_N}: cuda {rec['ms']:.4f} ms (CUDA graph "
+            f"{rec['graph_ms']:.4f} ms, not gated) against plain "
+            f"{rec['plain_ms']:.4f} and {TRITON_LAST_MS[name]:.4f} ms")
+        if gate:
+            _below_gates(f"{name} n={MAIN_N}", rec["ms"], rec["plain_ms"],
+                         TRITON_LAST_MS[name])
     return out
 
 
@@ -812,12 +904,15 @@ def lm_key_sizes() -> list:
     return sizes
 
 
-def time_lm_sweep(dev) -> dict:
+def time_lm_sweep(dev, builds=None, gate=True) -> dict:
     """One party's push of the flagship LM through the codec: its 35
     keys in model order, one quantize each, then one dequantize each of
     the codes; CUDA-event time of a sweep, of the CUDA kernels as the
     median of ``SWEEP_BATCHES`` batches of ``LM_SWEEPS`` sweeps (each
-    batch printed), and of the plain versions over ``LM_SWEEPS``."""
+    batch printed with the CUDA builds still running when it started,
+    C6), of the plain versions over ``LM_SWEEPS``, and of one sweep
+    replayed from a CUDA graph (printed beside the gate, not gated).
+    ``gate=False`` (the C6 probe) logs the gate without asserting it."""
     import torch
 
     from geomx_tpu_torch.ops import quantize as Q
@@ -843,19 +938,30 @@ def time_lm_sweep(dev) -> dict:
             ("dequantize_2bit", (dequant(C), lambda: [
                 Q.dequantize_2bit_ref(p, n, THRESHOLD, lay)
                 for p, n in zip(codes, sizes)]))):
-        batches = [_time_ms(sweep, LM_SWEEPS) for _ in range(SWEEP_BATCHES)]
+        batches, running = [], []
+        for _ in range(SWEEP_BATCHES):
+            running.append(_nvcc_running(builds))
+            batches.append(_time_ms(sweep, LM_SWEEPS))
         ms = float(np.median(batches))
         bound = sum(_bound_ms(name, n)[0] for n in sizes)
         out[name] = {"ms": ms, "batches_ms": batches,
+                     "batches_nvcc_running": running,
                      "plain_ms": _time_ms(plain, LM_SWEEPS),
+                     "graph_ms": _graph_ms(sweep, LM_SWEEPS),
                      "bound_ms": bound}
         log(f"LM push sweep ({len(sizes)} keys, {sum(sizes)} elements) "
             f"{name}: cuda batches "
-            f"{', '.join(f'{b:.4f}' for b in batches)} ms, median "
-            f"{ms:.4f} ms, plain "
+            f"{', '.join(f'{b:.4f}' for b in batches)} ms (nvcc running: "
+            f"{', '.join('+'.join(r) or 'none' for r in running)}), median "
+            f"{ms:.4f} ms against the gate "
+            f"{TRITON_LAST_SWEEP_MS[name]:.4f} ms; CUDA graph "
+            f"{out[name]['graph_ms']:.4f} ms (not gated); plain "
             f"{out[name]['plain_ms']:.4f} ms, bound {bound:.5f} ms")
-        _below_gates(f"LM push sweep {name}", ms, out[name]["plain_ms"],
-                     TRITON_LAST_SWEEP_MS[name])
+        out[name]["under_gate"] = ms < min(out[name]["plain_ms"],
+                                           TRITON_LAST_SWEEP_MS[name])
+        if gate:
+            _below_gates(f"LM push sweep {name}", ms,
+                         out[name]["plain_ms"], TRITON_LAST_SWEEP_MS[name])
     del keys, codes
     torch.cuda.empty_cache()
     return out
@@ -2147,7 +2253,7 @@ def run_launched_clusters() -> dict:
 
 # ---- phase 10: the JAX package's process-level acceptance suite ----------
 
-def run_acceptance() -> dict:
+def run_acceptance(before_timed=None) -> dict:
     """10: every case of ``geomx_tpu_torch/acceptance.py`` but phase 7b's
     (the P3 staged MLP and the dense LM under MPQ), each role its own
     process with ``--device cuda`` and the default merge backend (the
@@ -2156,7 +2262,8 @@ def run_acceptance() -> dict:
     (a gate reads wall time, or a joiner or zombie must come up within
     the cluster's remaining rounds) run one at a time; the others
     ``ACCEPT_PARALLEL`` at once.  The kernels are built already; a
-    child only loads them."""
+    child only loads them.  ``before_timed`` runs between the two (the
+    background scripts of phase 12a join there)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from geomx_tpu_torch import acceptance as A
@@ -2189,6 +2296,8 @@ def run_acceptance() -> dict:
         futures = {n: ex.submit(case, n) for n in untimed}
         recs = {n: f.result() for n, f in futures.items()}
     untimed_s = time.perf_counter() - t0
+    if before_timed is not None:
+        before_timed()
     for n in timing:
         recs[n] = case(n)
     return {"cases": recs, "parallel": ACCEPT_PARALLEL,
@@ -3241,21 +3350,26 @@ def all_launches() -> dict:
 
 # ---- phase 11: the backend lane on the card -----------------------------
 
-def _lane_runner():
-    """``tests/test_torch_runtime_lane_backend.py``, loaded by its path:
-    a ``tests`` package installed on the machine would shadow the
+def _load_by_path(name: str, rel: str):
+    """A repository test file as a module, loaded by its path: a
+    ``tests`` package installed on the machine would shadow the
     repository's namespace package."""
     import importlib.util
 
-    name = "torch_runtime_lane"
     if name not in sys.modules:
-        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "tests", "test_torch_runtime_lane_backend.py")
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
         spec = importlib.util.spec_from_file_location(name, path)
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
     return sys.modules[name]
+
+
+
+def _lane_runner():
+    """``tests/test_torch_runtime_lane_backend.py``."""
+    return _load_by_path("torch_runtime_lane",
+                         "tests/test_torch_runtime_lane_backend.py")
 
 
 def run_backend_lane() -> dict:
@@ -3302,6 +3416,194 @@ def run_backend_lane() -> dict:
             "seconds": res.wall_s}
 
 
+# ---- phase 12: the JAX repo's scripts and slow cases on the card --------
+
+def _scripts_runner():
+    return _load_by_path("torch_scripts_lane",
+                         "tests/test_torch_scripts_lane.py")
+
+
+class ScriptPool:
+    """12a's scripts but the tours of ``SCRIPTS_QUIET`` run in the
+    background from the end of phase 3b, ``SCRIPT_STREAMS`` at a time
+    on their own port ranges (phases 4-10 gate no time, and run as they
+    did beside them; phase 10's timed cases wait for :meth:`join`); the
+    quiet tours wait for :meth:`finish`.  Each script is held
+    to its own exit code and assertions and every launched cluster to
+    its exit lines (every server ``merge_backend=torch``, every worker
+    ``steps=``), the bsc config's local servers to 60 DGC updates each,
+    the mpq config's to one for each BSC pick.  Every script runs before
+    a failure fails the phase."""
+
+    def __init__(self):
+        import pathlib
+        from concurrent.futures import ThreadPoolExecutor
+
+        from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+
+        assert not C.LIB.stale(), \
+            "the codec library is not built: a child process would build it"
+        self.lane = _scripts_runner()
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.out_dir = pathlib.Path(root) / "chiprun_out"
+        self.work = self.out_dir / "chip_smoke_scripts"
+        self.work.mkdir(parents=True, exist_ok=True)
+        names = list(self.lane.RUNNABLE)
+        # the longest first: the pool ends with the short configs
+        self.pooled = sorted((n for n in names if n not in SCRIPTS_QUIET),
+                             key=lambda n: -SCRIPT_WALL_HINT_S.get(n, 30))
+        log(f"phase 12a: {len(self.pooled)} scripts {SCRIPT_STREAMS} at once "
+            f"in the background; after phase 11 {QUIET_STREAMS} side by "
+            f"side, then {QUIET_ALONE} alone")
+        self.t0 = time.perf_counter()
+        self.results = {}
+        self.ex = ThreadPoolExecutor(SCRIPT_STREAMS)
+        self.futures = {n: self.ex.submit(self._one, n) for n in self.pooled}
+
+    def _one(self, name):
+        res = self.lane.run_script(name, "cuda", workdir=self.work,
+                                   timeout=SCRIPT_TIMEOUT_S)
+        self.lane.write_output(res, self.out_dir / "chip_smoke")
+        log(f"script {self.lane.summary(res)}")
+        return res
+
+    def join(self) -> float:
+        """Wait for the background scripts; their wall (s)."""
+        self.results.update({n: f.result() for n, f in self.futures.items()})
+        self.ex.shutdown()
+        self.pooled_s = time.perf_counter() - self.t0
+        log(f"phase 12a: the background scripts joined after "
+            f"{self.pooled_s:.1f} s")
+        return self.pooled_s
+
+    def finish(self) -> dict:
+        """Run the quiet scripts, then fail on any failed script."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def stream(seq):
+            return {n: self._one(n) for n in seq}
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(QUIET_STREAMS)) as ex:
+            for done in ex.map(stream, QUIET_STREAMS):
+                self.results.update(done)
+        self.results.update(stream(QUIET_ALONE))
+        quiet_s = time.perf_counter() - t0
+        bad = {n: self.lane.summary(r) + "\n" + r.output[-2500:]
+               for n, r in self.results.items() if not r.ok()}
+        assert not bad, f"scripts failed on the card: {bad}"
+        return {"scripts": {n: {"rc": r.rc, "seconds": r.wall_s,
+                                "roles": len(r.roles),
+                                "codec_launches": r.codec,
+                                "kernel_launches": r.kernel_launches}
+                            for n, r in self.results.items()},
+                "streams": SCRIPT_STREAMS, "quiet_streams": QUIET_STREAMS,
+                "quiet_alone": QUIET_ALONE, "pooled_s": self.pooled_s,
+                "quiet_s": quiet_s}
+
+
+def run_trace_counterpart() -> dict:
+    """12b: ``examples/trace_demo.py`` (the counterpart of
+    ``scripts/run_trace_demo.sh``) on the card: its assertions, and its
+    critical-path report printed, each round's dominant stage."""
+    from geomx_tpu_torch.examples import trace_demo
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "chip_smoke_trace")
+    t0 = time.perf_counter()
+    rec = trace_demo.run("cuda", out)
+    seconds = time.perf_counter() - t0
+    log("trace demo on the card, critical-path report:\n"
+        + rec["report_text"])
+    dominant = [r["dominant_stage"] for r in rec["report"]["rounds"]]
+    log(f"trace demo: {rec['events']} events, roles {rec['roles']}, "
+        f"{rec['rounds']} rounds, dominant stages {dominant}, "
+        f"{seconds:.1f} s")
+    return {"events": rec["events"], "roles": rec["roles"],
+            "rounds": rec["report"]["rounds"], "dominant": dominant,
+            "seconds": seconds}
+
+
+def run_slow_lane(cases=None) -> dict:
+    """``--slow-lane``: the backend lane's slow mode (the JAX suites'
+    soak and kill cases, each in its own pytest subprocess; ``cases``,
+    default ``SLOW_CASES``) with ``GEOMX_MERGE_BACKEND=torch``: 0
+    failed, 0 skipped.  The kernels must be built."""
+    lane_mod = _lane_runner()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "chiprun_out")
+    work = os.path.join(out_dir, "chip_smoke_slow_lane")
+    os.makedirs(work, exist_ok=True)
+    cases = tuple(cases or lane_mod.SLOW_CASES)
+    res = lane_mod.run_slow_cases("torch", workdir=work, cases=cases,
+                                  timeout=SLOW_CASE_TIMEOUT_S)
+    with open(os.path.join(out_dir, "chip_smoke_slow_lane.txt"), "w") as f:
+        f.write(res.output)
+    for nid, outcome in res.cases.items():
+        log(f"slow lane {nid}: {outcome}, {res.walls.get(nid, 0):.1f} s")
+    log(f"slow lane on the card: {len(res.cases)} cases, "
+        f"{sum(o == 'passed' for o in res.cases.values())} passed, "
+        f"{len(res.failed())} failed, rc {res.rc}, {res.wall_s:.1f} s")
+    assert res.rc == 0 and not res.failed() and set(res.cases) == set(
+        cases), \
+        f"slow lane on the card: rc {res.rc}, failed {res.failed()}\n" \
+        + res.output[-4000:]
+    skipped = [n for n, o in res.cases.items() if o == "skipped"]
+    assert not skipped, f"slow lane cases skipped on the card: {skipped}"
+    return {"cases": res.cases, "walls": res.walls, "rc": res.rc,
+            "seconds": res.wall_s}
+
+
+def _codec_iters(n: int) -> int:
+    return 20 if n >= 10_000_000 else 500
+
+
+def c6_probe() -> int:
+    """``--c6-probe``: phase 2's timings in the order before C6's repair
+    (the flash and block builds still running while the codec kernels
+    and the LM sweep are timed, each batch logged with the builds then
+    running), then the same timings again after every build has joined.
+    Run it twice in one call: from a cold kernel cache (nvcc runs) and
+    from a warm one (every build is a load).  Writes
+    ``chiprun_out/chip_smoke_c6_<n>.json``."""
+    import torch
+
+    from geomx_tpu_torch.core.platform import resolve_device
+    from geomx_tpu_torch.ops.kernels import block_attention as KB
+    from geomx_tpu_torch.ops.kernels import flash_attention as FK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device("cuda")
+    smi = device_report()
+    cold = FK.LIB.stale() or KB.LIB.stale()
+    builds = start_cuda_builds()
+    builds["codec"].result()
+    log(f"c6 probe: kernel cache {'cold' if cold else 'warm'}; nvcc "
+        f"running after the codec build: {_nvcc_running(builds) or 'none'}")
+    rec = {"nvidia_smi": smi, "cache": "cold" if cold else "warm"}
+    check_kernels(dev)          # the parent's order: checks, times, sweep
+    rec["during_builds"] = {
+        "times": time_kernels(dev, CODEC_TIME_SIZES, _codec_iters, builds,
+                              gate=False),
+        "sweep": time_lm_sweep(dev, builds, gate=False)}
+    rec["build_s"] = {n: f.result() for n, f in builds.items()}
+    log(f"c6 probe: builds joined: {rec['build_s']} s")
+    rec["after_builds"] = {
+        "times": time_kernels(dev, CODEC_TIME_SIZES, _codec_iters, builds,
+                              gate=False),
+        "sweep": time_lm_sweep(dev, builds, gate=False)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    n = 0
+    while os.path.exists(os.path.join(root, "chiprun_out",
+                                      f"chip_smoke_c6_{n}.json")):
+        n += 1
+    with open(os.path.join(root, "chiprun_out",
+                           f"chip_smoke_c6_{n}.json"), "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3330,13 +3632,16 @@ def main() -> int:
 
     log(f"codec kernels: ptxas: {'; '.join(_ptxas(C.LIB))}")
     err = check_kernels(dev)
-    times = time_kernels(dev, CODEC_TIME_SIZES,
-                         lambda n: 20 if n >= 10_000_000 else 500)
-    sweep = time_lm_sweep(dev)
-    log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
+    # C6: no timing while nvcc runs on the host's cores; the correctness
+    # checks above may overlap the builds
+    log(f"nvcc running after the codec checks: "
+        f"{_nvcc_running(builds) or 'none'}")
     build_s = {name: f.result() for name, f in builds.items()}
     log(f"CUDA sources built with nvcc, in parallel: "
         f"{ {n: round(v, 1) for n, v in build_s.items()} } s")
+    times = time_kernels(dev, CODEC_TIME_SIZES, _codec_iters, builds)
+    sweep = time_lm_sweep(dev, builds)
+    log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
 
     flash = check_flash(dev)
     flash["fixed_order"] = check_flash_ordered(dev)
@@ -3344,6 +3649,9 @@ def main() -> int:
     log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
     block = check_block(dev)
     log(f"phase 3b done in {time.perf_counter() - t0:.1f} s")
+    # the time gates are behind us: phase 12a's load-tolerant scripts
+    # start in the background, beside phases 4-10's untimed work
+    scripts_pool = ScriptPool()
     full, refs = check_full_width_step(dev)
     log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
     sp = check_sp_step(dev, refs)
@@ -3408,12 +3716,18 @@ def main() -> int:
     rung = check_merge_rung(dev)
     log(f"phase 9d done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    accept = run_acceptance()
+    accept = run_acceptance(before_timed=scripts_pool.join)
     log(f"phase 10 done in {time.perf_counter() - t0:.1f} s "
         f"({accept['seconds']:.1f} s)")
     lane = run_backend_lane()
     log(f"phase 11 done in {time.perf_counter() - t0:.1f} s "
         f"({lane['seconds']:.1f} s)")
+    scripts = scripts_pool.finish()
+    log(f"phase 12a done in {time.perf_counter() - t0:.1f} s (the "
+        f"background scripts {scripts['pooled_s']:.1f} s, the quiet ones "
+        f"{scripts['quiet_s']:.1f} s)")
+    trace = run_trace_counterpart()
+    log(f"phase 12b done in {time.perf_counter() - t0:.1f} s")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -3428,6 +3742,17 @@ def main() -> int:
         if "dgc_update_by_server" in rec:
             path_launches[f"accept_{name}_local_servers"] = {
                 "dgc_update": sum(rec["dgc_update_by_server"].values())}
+    # phase 12: the scripts' servers (their own processes) and the
+    # in-process adaptive demo
+    for name, rec in scripts["scripts"].items():
+        local = {r: c for r, c in rec["codec_launches"].items()
+                 if r.startswith("server:")}
+        if local:
+            path_launches[f"script_{name[:-3]}_local_servers"] = {
+                k: sum(c.get(k, 0) for c in local.values())
+                for k in ("quantize_2bit", "dequantize_2bit", "dgc_update")}
+        if rec["kernel_launches"]:
+            path_launches[f"script_{name[:-3]}"] = rec["kernel_launches"]
     path_launches.update(moe_lm=moe["georound"]["launches"],
                          moe_lm_none=moe["georound_none"]["launches"],
                          zoo_resnet_bsc=zoo["georound"]["launches"],
@@ -3511,6 +3836,7 @@ def main() -> int:
               "parallel": {"tp": tp, "pp": pp, "dp": dpr,
                            "merge_rung": rung},
               "acceptance": accept, "backend_lane": lane,
+              "scripts": scripts, "trace_demo": trace,
               "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3523,5 +3849,28 @@ def main() -> int:
     return 0
 
 
+def slow_lane_main(argv) -> int:
+    """``--slow-lane [NODE_ID ...]``: build the kernels, then
+    :func:`run_slow_lane` on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device_report()
+    for f in start_cuda_builds().values():
+        f.result()
+    rec = run_slow_lane(argv or None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "chiprun_out",
+                           "chip_smoke_slow_lane.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--c6-probe"], ["--slow-lane"]):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(c6_probe() if sys.argv[1] == "--c6-probe"
+                 else slow_lane_main(sys.argv[2:]))
     sys.exit(main())

@@ -17,4 +17,15 @@ caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 from geomx_tpu_torch.core.config import Config, Role, Topology  # noqa: F401
-from geomx_tpu_torch.core.platform import resolve_device  # noqa: F401
+
+
+def __getattr__(name):
+    # resolve_device imports torch: the host-only command-line tools
+    # (serve.load, status, obs.postmortem) import this package and must
+    # start as fast as the JAX package's (2.5 s of torch import delayed
+    # scripts/run_serve_demo.sh's reads past its replica kill)
+    if name == "resolve_device":
+        from geomx_tpu_torch.core.platform import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -329,6 +329,11 @@ class LocalServer:
         self.preempt_server_drains = 0
         self.last_drain_s: Optional[float] = None
         self._wan_inflight = 0  # WAN push batches awaiting group acks
+        # WAN pull-downs awaiting their answer: the degrade watchdog's
+        # other stall (C11: a cut between a batch's acks and its
+        # pull-down left nothing in flight, and the party never
+        # degraded)
+        self._wan_pulls = 0
         self._preempt_waiters: List[Message] = []
         self._preempt_busy = False
         # partition tolerance (Config.enable_partition_mode; docs/
@@ -1050,8 +1055,13 @@ class LocalServer:
         if self._flight is not None:
             self._flight.record(FlightEv.WARM_BOOT, a=len(got))
         # re-sync the party's 1/num_workers pre-scale and membership (a
-        # replacement process restarted the count at the static plan)
-        self._broadcast_membership()
+        # replacement process restarted the count at the static plan);
+        # one sender thread a peer (C12): this process has dialed no
+        # peer yet, and a first dial to one that is down (a drained
+        # worker) retries for the fabric's bring-up window, 30 s — in
+        # line, that held the warm boot's REJOIN reply, and with it the
+        # party's recovery, for those 30 s
+        self._broadcast_membership(per_peer_threads=True)
         print(f"{self.po.node}: warm boot adopted {len(got)} keys from "
               "the global tier", flush=True)
         return len(got)
@@ -1065,7 +1075,7 @@ class LocalServer:
         if self._degraded or not self._partition_mode:
             return
         with self._ctr_mu:
-            inflight = self._wan_inflight
+            inflight = self._wan_inflight + self._wan_pulls
             last = self._wan_progress_t
         if (inflight > 0
                 and time.monotonic() - last > self._degrade_window
@@ -1115,6 +1125,7 @@ class LocalServer:
         with self._ctr_mu:
             self._wan_inflight = 0  # abandoned; the ack-side clamp
             #                         absorbs any late arrivals
+            self._wan_pulls = 0
         if self._flight is not None:
             self._flight.record(FlightEv.NETFAULT, a=len(stuck),
                                 note="netfault_degraded")
@@ -1415,7 +1426,7 @@ class LocalServer:
               flush=True)
         return True
 
-    def _broadcast_membership(self):
+    def _broadcast_membership(self, per_peer_threads: bool = False):
         """Tell every party worker the new aggregation size — their
         1/num_workers gradient pre-scale must track membership or the
         post-join update stops being a mean (static plan workers +
@@ -1440,13 +1451,22 @@ class LocalServer:
         sched = self.po.topology.scheduler(self.po.node.party)
         body = {"event": "membership", "num_workers": total, "seq": seq,
                 "members": sorted(extra), "addrs": addrs}
-        for n in list(targets.values()) + [sched]:
+
+        def send(n):
             try:
                 self.po.van.send(Message(
                     recipient=n, control=Control.ADD_NODE,
                     domain=Domain.LOCAL, request=False, body=body))
             except (KeyError, OSError):
                 pass  # a down/unknown worker learns on its next join
+
+        for n in list(targets.values()) + [sched]:
+            if per_peer_threads:
+                threading.Thread(target=send, args=(n,), daemon=True,
+                                 name=f"membership-{self.po.node}-{n}"
+                                 ).start()
+            else:
+                send(n)
 
     def _handle_push(self, msg: Message, kvs: KVPairs):
         state = self._recent.check(msg)
@@ -1933,8 +1953,7 @@ class LocalServer:
                     # current replica instead of gating on a delivery
                     self._finish_round(keys)
                 return
-            self.up.zpull(keys,
-                          cb=lambda kvs: self._on_pull_down(kvs, epochs),
+            self.up.zpull(keys, cb=self._wan_pull_opened(epochs),
                           priority=prio, body=self._pull_echo(keys))
 
         # group keys by wire codec so each message has a uniform payload
@@ -1962,7 +1981,7 @@ class LocalServer:
                 lens = np.array([len(p) for _, p in pairs], dtype=np.int64)
                 self.up.push_pull(
                     KVPairs(ks, vals, lens), cmd=Cmd.DEFAULT,
-                    cb=lambda kvs: self._on_pull_down(kvs, epochs),
+                    cb=self._wan_pull_opened(epochs),
                     compr=tag, priority=prio, donated=True,
                     body=self._pull_echo([int(k) for k in ks]))
             return
@@ -1987,6 +2006,21 @@ class LocalServer:
         for tag, pairs in groups.items():
             self._send_wan_group(tag, pairs, one_group_acked, push_body,
                                  prio, rs_keys, raw)
+
+    def _wan_pull_opened(self, epochs: dict):
+        """Count a WAN pull-down as outstanding for the degrade watchdog
+        (C11); returns its answer's callback, which uncounts it (the
+        clamp absorbs answers to pulls a degrade entry abandoned) and
+        finishes the round."""
+        with self._ctr_mu:
+            self._wan_pulls += 1
+
+        def landed(kvs):
+            with self._ctr_mu:
+                self._wan_pulls = max(0, self._wan_pulls - 1)
+                self._wan_progress_t = time.monotonic()
+            self._on_pull_down(kvs, epochs)
+        return landed
 
     def _encode_wan_groups(self, kvs: KVPairs,
                            rs_keys=frozenset()) -> Dict[str, list]:

@@ -75,11 +75,22 @@ def build_runtime(node: NodeId, config: Config, base_port: int = 9200,
 
     def on_control(msg: Message) -> bool:
         if msg.control is Control.TERMINATE:
+            if node.role is Role.SCHEDULER:
+                # pass the end of the run on to the party's workers,
+                # which wait for it (_end_of_training)
+                for w in config.topology.workers(node.party):
+                    try:
+                        po.van.send(Message(recipient=w,
+                                            control=Control.TERMINATE,
+                                            domain=Domain.LOCAL))
+                    except (KeyError, OSError):
+                        pass
             stop_ev.set()
             return True
         return False
 
     po.add_control_hook(on_control)
+    po.terminated = stop_ev
     # NOTE: po.start() happens AFTER role construction (and after a
     # restarted global server loads its checkpoint): starting the van
     # first opens a window where replayed pushes reach a server whose
@@ -329,6 +340,22 @@ def shutdown_cluster(po: Postoffice):
                                     domain=domain))
             except (KeyError, OSError):
                 pass
+
+
+def _end_of_training(po: Postoffice, kv) -> None:
+    """After a worker's last step and its party barrier: party 0's rank
+    0 ends the run (:func:`shutdown_cluster`); any other worker, when
+    heartbeats are on, stays up until the TERMINATE its party scheduler
+    passes on.  A worker that exited at once went silent while the run
+    went on, and its scheduler evicted it by heartbeat expiry (C10:
+    ``scripts/run_partition_demo.sh``'s survivor party finished first
+    and its worker was reported evicted, in both packages)."""
+    kv.barrier()
+    if kv.party == 0 and kv.rank == 0:
+        time.sleep(0.5)  # let sibling parties drain their last rounds
+        shutdown_cluster(po)
+    elif po.config.heartbeat_interval_s > 0:
+        po.terminated.wait()
 
 
 def _wait_servers_up(kv, timeout: float = 90.0):
@@ -612,10 +639,7 @@ def _worker_demo(po, kv, args, join_advertise=None):
         return
     print(f"{po.node}: steps={len(hist)} first_loss={hist[0][0]:.4f} "
           f"last_loss={hist[-1][0]:.4f}", flush=True)
-    kv.barrier()
-    if kv.party == 0 and kv.rank == 0:
-        time.sleep(0.5)  # let sibling parties drain their last rounds
-        shutdown_cluster(po)
+    _end_of_training(po, kv)
 
 
 def _worker_demo_lm(po, kv, args):
@@ -651,10 +675,7 @@ def _worker_demo_lm(po, kv, args):
     print(f"{po.node}: steps={len(hist)} first_loss={hist[0][0]:.4f} "
           f"last_loss={hist[-1][0]:.4f} n_params={n_params} "
           f"tokens_per_sec={steady:.1f}", flush=True)
-    kv.barrier()
-    if kv.party == 0 and kv.rank == 0:
-        time.sleep(0.5)
-        shutdown_cluster(po)
+    _end_of_training(po, kv)
 
 
 # the ESync workload's cap on a worker's local steps a round: the
@@ -716,10 +737,7 @@ def _worker_demo_esync(po, kv, args):
           f"last_loss={hist[-1][0]:.4f} local_steps={len(hist)}",
           flush=True)
     print(f"{po.node}: esync_rounds={rounds_info!r}", flush=True)
-    kv.barrier()
-    if kv.party == 0 and kv.rank == 0:
-        time.sleep(0.5)
-        shutdown_cluster(po)
+    _end_of_training(po, kv)
 
 
 def _worker_demo_staged(po, kv, args):
@@ -772,10 +790,7 @@ def _worker_demo_staged(po, kv, args):
     hist = run_worker_overlapped(kv, model, params, it, args.steps)
     print(f"{po.node}: steps={len(hist)} first_loss={hist[0][0]:.4f} "
           f"last_loss={hist[-1][0]:.4f}", flush=True)
-    kv.barrier()
-    if kv.party == 0 and kv.rank == 0:
-        time.sleep(0.5)
-        shutdown_cluster(po)
+    _end_of_training(po, kv)
 
 
 # ports this process has handed out: clusters started side by side (each

@@ -291,7 +291,12 @@ class TcpFabric:
 
     def __init__(self, plan: Dict[str, Tuple[str, int]],
                  fault: Optional[FaultPolicy] = None,
-                 config: Optional[Config] = None):
+                 config: Optional[Config] = None,
+                 dial_window_s: float = 30.0):
+        # how long a first dial to a peer retries while its listener
+        # comes up (see _dial); a client joining a running cluster takes
+        # a short one (C14)
+        self.dial_window_s = dial_window_s
         if fault is None:
             fault = FaultPolicy.from_config(config) if config else FaultPolicy()
         self.fault = fault
@@ -720,7 +725,8 @@ class TcpFabric:
     _TRANSIENT_ERRNOS = frozenset({errno.ECONNREFUSED, errno.ECONNRESET,
                                    errno.ECONNABORTED, errno.ETIMEDOUT})
 
-    def _dial(self, dest: str, retry_for: float = 30.0) -> socket.socket:
+    def _dial(self, dest: str, retry_for: Optional[float] = None
+              ) -> socket.socket:
         """Connect to a peer, retrying while its listener comes up.
 
         Roles start as independent processes in arbitrary order (the
@@ -735,6 +741,8 @@ class TcpFabric:
         blocked behind a dead destination.  Redelivery to a restarted
         peer is the resend layer's job."""
         host, port = self.plan[dest]
+        if retry_for is None:
+            retry_for = self.dial_window_s
         with self._registry_mu:
             if dest in self._established:
                 deadline = 0.0

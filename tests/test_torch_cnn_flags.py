@@ -5,6 +5,9 @@
   registry), and each flag set gives the port's ``Simulation`` the same
   ``Config`` fields as the JAX example gives its own (both captured at
   the ``Simulation`` call, before anything runs).
+- Each of the nine presets (``examples/cnn_<feature>.py`` on
+  ``examples/_wrapper.py``) gives the same ``Config`` fields as its
+  port counterpart ``geomx_tpu_torch.examples.cnn_<feature>``.
 - ``--device cpu`` runs of 2 steps (or rounds) of the full-width CNN
   under ``--hfa`` (k1 = 1, so the second sync crosses the WAN and the
   global server adds the milestone delta on its device), ``--esync``, ``--p3``, ``--tsengine``, ``--sync mixed
@@ -118,6 +121,40 @@ def test_flags_set_the_jax_examples_config_fields(jax_example, monkeypatch,
     want = _view(_jax_config(jax_example, flags, monkeypatch))
     got = _view(_port_config(flags, monkeypatch))
     assert got == want
+
+
+PRESETS = ("bsc", "dgt", "esync", "fp16", "hfa", "mixed_sync", "mpq", "p3",
+           "tsengine")
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_preset_gives_the_jax_presets_config(jax_example, monkeypatch,
+                                             name):
+    """The JAX preset (run as a script: its ``_wrapper`` imports ``cnn``
+    from its directory, here the JAX example with ``Simulation``
+    patched) and the port's preset on the CPU give equal fields."""
+    import runpy
+
+    from geomx_tpu_torch.examples import _wrapper
+
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setitem(sys.modules, "cnn", jax_example)
+    monkeypatch.delitem(sys.modules, "_wrapper", raising=False)
+    monkeypatch.setattr(sys, "argv", [f"cnn_{name}.py"])
+    monkeypatch.setattr(jax_example, "Simulation", _raise_stop)
+    with pytest.raises(_Stop) as stop:
+        runpy.run_path(str(ROOT / "examples" / f"cnn_{name}.py"),
+                       run_name="__main__")
+    monkeypatch.delitem(sys.modules, "_wrapper", raising=False)
+    want = _view(stop.value.what)
+
+    preset = importlib.import_module(f"geomx_tpu_torch.examples.cnn_{name}")
+    monkeypatch.setattr(port_kvstore, "Simulation", _raise_stop)
+    with pytest.raises(_Stop) as stop:
+        _wrapper.run(preset.FLAGS, ["--device", "cpu"])
+    assert _view(stop.value.what) == want
+    assert want != _view(_jax_config(jax_example, [], monkeypatch)), \
+        f"cnn_{name} sets no field the comparison sees"
 
 
 def _write_mnist(root: Path, split: str, n: int, seed: int) -> None:

@@ -140,6 +140,26 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda):
         .device == torch.device("cpu")
 
 
+def test_presets_and_trace_demo_raise_without_cuda_unless_cpu(no_cuda,
+                                                              tmp_path):
+    """The CNN presets and the trace demo (the counterparts of the JAX
+    package's ``examples/cnn_<feature>.py`` and
+    ``scripts/run_trace_demo.sh``)."""
+    import importlib
+
+    from geomx_tpu_torch.examples import _wrapper, trace_demo
+
+    for name in ("bsc", "dgt", "esync", "fp16", "hfa", "mixed_sync", "mpq",
+                 "p3", "tsengine"):
+        preset = importlib.import_module(
+            f"geomx_tpu_torch.examples.cnn_{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            _wrapper.run(preset.FLAGS, ["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trace_demo.main(["--out", str(tmp_path)])
+    assert trace_demo.run("cpu", str(tmp_path), steps=1)["rounds"] >= 1
+
+
 def test_zoo_moe_int8_and_parity_entry_points_raise_without_cuda(
         no_cuda, monkeypatch):
     """The zoo's and ResNet's factories (directly and by name), the MoE

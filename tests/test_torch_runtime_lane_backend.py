@@ -24,9 +24,18 @@ and the port test that stands in for each. JAX-side timing tests that
 fail under load (ROADMAP C), and the one case too heavy for a tier-1
 worker, run only in ``test_lane_slow_cases``, which is ``slow``.
 
+The slow mode (``run_slow_cases``, ``SLOW_CASES``) runs the JAX
+suites' ``slow`` soak and kill cases of these files and of
+``test_reactor.py``, each in a pytest subprocess of its own (``slow``
+tests here; on the card ``chip_smoke.py --slow-lane``); the lists beside
+it name what stands in for the others.  A JAX test file that another
+imports a helper from (``tests.test_tcp``) is written into the lane
+beside the files and imported from there.
+
 One file by hand::
 
     python -m tests.test_torch_runtime_lane_backend kvstore [--backend torch:cpu]
+    python -m tests.test_torch_runtime_lane_backend --slow
 """
 
 import argparse
@@ -87,6 +96,12 @@ LEFT_OUT = {
     "test_esync.py::test_esync_training_assigns_more_steps_to_fast_worker":
         (_CNN, "tests/test_torch_runtime_training.py::"
                "test_esync_training_assigns_more_steps_to_fast_worker"),
+    "test_eviction.py::test_crash_eviction_e2e_worker_and_local_server":
+        (_CNN + " (slow)", "tests/test_torch_runtime_training.py::"
+                           "test_crash_eviction_e2e_worker_and_local_server"),
+    "test_robustness.py::test_chaos_soak_drops_joins_leaves_compression":
+        (_CNN + " (slow)", "tests/test_torch_runtime_training.py::"
+                           "test_chaos_soak_drops_joins_leaves_compression"),
     "test_sharded_merge.py::test_sharded_merge_bit_identical_to_single_lock":
         ("reads the server's accumulator with ndarray.tobytes(); on the "
          "torch backend it is a tensor",
@@ -112,7 +127,54 @@ TIMING = (
 )
 
 
+# The slow mode (``run_slow_cases``): the ``slow`` cases of the lane's
+# files and of ``test_reactor.py``, each in a pytest subprocess of its
+# own (a soak's leftover load must not time the next one), but the soaks
+# the lane runs already (``ALL_SLOW``), those that train the JAX CNN
+# (``LEFT_OUT``), those whose scenarios ``geomx_tpu_torch/acceptance.py``
+# runs as real processes (``SLOW_COVERED``: its cases ``failover``,
+# ``replace``, ``restart``, ``shards`` and ``join_*``) and the JAX-side
+# timing case of ``SLOW_TIMING``.
+SLOW_FILES = FILES + ("reactor",)
+SLOW_MARKER = "slow and not lane_runs_slow"
+SLOW_CASES = (
+    "test_adaptive_wan.py::"
+    "test_throttled_wan_downshift_recovers_wall_time_with_loss_parity",
+    "test_partition.py::test_region_outage_soak_quarantine_catchup_loss_parity",
+    "test_serve.py::test_e2e_reads_survive_shard_sigkill_under_training",
+    "test_flight.py::test_postmortem_of_killed_shard_primary_e2e",
+    "test_robustness.py::test_tcp_peer_restart_recovery_via_resend",
+    "test_reactor.py::test_128_party_512_worker_soak",
+)
+# Fails on the JAX package too, alone, on an 8-core host (ROADMAP C,
+# reference side): its graceful drains must each take under a quarter
+# of the 0.6 s heartbeat timeout with 48 workers' threads on the cores.
+SLOW_TIMING = (
+    "test_churn.py::test_spot_churn_soak_24_parties_loss_parity",
+)
+SLOW_COVERED = {
+    "test_failover.py::test_failover_e2e_processes": "failover",
+    "test_recovery.py::test_global_server_replacement_at_new_address":
+        "replace",
+    "test_recovery.py::"
+    "test_global_server_crash_restart_midtraining_resumes_checkpoint":
+        "restart",
+    "test_sharded_global.py::test_shard_chaos_e2e_processes": "shards",
+    "test_dynamic_join.py::test_worker_joins_over_real_tcp":
+        "join_plain, join_tsengine, join_hfa",
+}
+
+
+# JAX test files some lane files import a helper from (``from
+# tests.test_tcp import free_base_port``): written into the lane,
+# rewritten, beside its files (not run), and imported from there (a
+# ``tests`` package installed on the card's machine shadows the
+# repository's)
+HELPERS = ("tcp",)
+
+
 def _rewrite(text: str) -> str:
+    text = re.sub(r"\btests\.test_(\w+)\b", r"test_\1", text)
     return re.sub(r"geomx_tpu\b", "geomx_tpu_torch", text)
 
 
@@ -183,7 +245,7 @@ def write_lane(dest: pathlib.Path, files=FILES, extra=()) -> pathlib.Path:
     (repository paths, copied as they are), the conftest and
     ``pytest.ini`` into ``dest``."""
     dest.mkdir(parents=True, exist_ok=True)
-    for name in files:
+    for name in tuple(files) + tuple(h for h in HELPERS if h not in files):
         src = (ROOT / "tests" / f"test_{name}.py").read_text()
         (dest / f"test_{name}.py").write_text(_rewrite(src))
     for rel in extra:
@@ -202,6 +264,7 @@ class LaneResult:
     wall_s: float
     output: str
     cases: dict = field(default_factory=dict)   # node id -> outcome
+    walls: dict = field(default_factory=dict)   # node id -> s (slow mode)
 
     def per_file(self):
         """{file: {"passed": n, "failed": n, "skipped": n, "left_out": n}}"""
@@ -247,31 +310,34 @@ def _env(backend: str, extra_env=None) -> dict:
 
 def run_lane(files=FILES, backend: str = "torch:cpu", *,
              workdir=None, only=None, heavy: bool = False,
-             timeout: float = 900, extra=(), extra_env=None
-             ) -> LaneResult:
+             timeout: float = 900, extra=(), extra_env=None,
+             marker=None, slow: bool = False, leave_out=()) -> LaneResult:
     """Run the lane's ``files`` under ``backend`` in one pytest
-    subprocess, the cases ``MARKER`` selects, with the port's ``extra``
-    test files beside them (``extra_env`` added to the environment).
-    ``only``: run just these node ids (the timing or heavy cases);
-    otherwise ``LEFT_OUT``, ``TIMING`` and, unless ``heavy``, ``HEAVY``
-    are left out and counted as such."""
+    subprocess, the cases ``marker`` (default ``MARKER``) selects, with
+    the port's ``extra`` test files beside them (``extra_env`` added to
+    the environment).  ``only``: run just these node ids (the timing or
+    heavy cases); otherwise ``LEFT_OUT``, ``TIMING`` and, unless
+    ``heavy``, ``HEAVY`` are left out and counted as such.  ``slow``:
+    the slow mode (``SLOW_MARKER``, ``SLOW_COVERED`` left out too)."""
     tmp = None
     if workdir is None:
         tmp = tempfile.TemporaryDirectory(prefix="lane-")
         workdir = tmp.name
-    lane = write_lane(pathlib.Path(workdir) / "lane", files, extra)
-    junit = pathlib.Path(workdir) / "lane.xml"
+    workdir = pathlib.Path(workdir).resolve()   # pytest runs in the lane
+    lane = write_lane(workdir / "lane", files, extra)
+    junit = workdir / "lane.xml"
     deselect = () if only is not None else \
-        tuple(LEFT_OUT) + TIMING + (() if heavy else HEAVY)
+        tuple(LEFT_OUT) + TIMING + (() if heavy else HEAVY) + tuple(leave_out)
+    marker = SLOW_MARKER if slow else (marker or MARKER)
     targets = list(only) if only is not None else \
         [f"test_{f}.py" for f in files] + [pathlib.Path(r).name
                                            for r in extra]
-    args = [sys.executable, "-m", "pytest", "-q", "-m", MARKER,
+    args = [sys.executable, "-m", "pytest", "-q", "-m", marker,
             "-p", "no:cacheprovider", "-p", "no:randomly",
             "-p", "no:xdist", "-o", "junit_family=xunit1",
             f"--junitxml={junit}", *targets]
     args += [f"--deselect={d}" for d in deselect]
-    desel = pathlib.Path(workdir) / "lane.deselected"
+    desel = workdir / "lane.deselected"
     desel.unlink(missing_ok=True)
     env = _env(backend, dict(extra_env or {},
                              GEOMX_LANE_DESELECTED=str(desel)))
@@ -293,6 +359,26 @@ def run_lane(files=FILES, backend: str = "torch:cpu", *,
     if tmp is not None:
         tmp.cleanup()
     return LaneResult(rc, wall, text, cases)
+
+
+def run_slow_cases(backend: str = "torch:cpu", *, workdir=None,
+                   cases=SLOW_CASES, timeout: float = 600) -> LaneResult:
+    """The slow mode: each of ``cases`` alone in its own pytest
+    subprocess; one result over them all (the walls summed)."""
+    out = LaneResult(0, 0.0, "")
+    for i, nid in enumerate(cases):
+        f = nid.split("::")[0][len("test_"):-len(".py")]
+        wd = None if workdir is None else pathlib.Path(workdir) / f"c{i}"
+        res = run_lane((f,), backend, workdir=wd, only=(nid,), slow=True,
+                       timeout=timeout)
+        out.rc = out.rc or res.rc
+        out.wall_s += res.wall_s
+        out.output += f"===== {nid}: rc {res.rc} {res.wall_s:.1f} s\n" \
+            + res.output[-6000:] + "\n"
+        out.cases.update(res.cases)
+        out.cases.setdefault(nid, "failed")   # no JUnit entry: it never ran
+        out.walls[nid] = res.wall_s
+    return out
 
 
 def check_file(name: str, tmp_path) -> None:
@@ -323,14 +409,56 @@ def test_lane_slow_cases(which, tmp_path):
     assert res.rc == 0 and not res.failed(), res.output[-6000:]
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("nid", SLOW_CASES + SLOW_TIMING)
+def test_lane_slow_case(nid, tmp_path):
+    """The slow mode: one of the JAX suites' soak and kill cases on the
+    port (``SLOW_TIMING``'s fails on the JAX package too, ROADMAP C)."""
+    res = run_slow_cases("torch:cpu", workdir=tmp_path, cases=(nid,))
+    assert res.rc == 0 and res.cases == {nid: "passed"}, \
+        res.output[-6000:]
+
+
+def test_slow_lists_cover_every_slow_case():
+    """Every ``slow`` case of the slow mode's files is in exactly one of
+    its lists: run (``SLOW_CASES``), JAX-side timing (``SLOW_TIMING``),
+    covered by an acceptance case (``SLOW_COVERED``), trained on the JAX
+    CNN (``LEFT_OUT``), or of a file the lane runs whole
+    (``ALL_SLOW``)."""
+    found = set()
+    for f in SLOW_FILES:
+        if f in ALL_SLOW:
+            continue
+        src = (ROOT / "tests" / f"test_{f}.py").read_text()
+        for m in re.finditer(r"@pytest\.mark\.slow\n(?:@.*\n)*def (\w+)\(",
+                             src):
+            found.add(f"test_{f}.py::{m.group(1)}")
+    lists = [set(SLOW_CASES), set(SLOW_TIMING), set(SLOW_COVERED),
+             set(LEFT_OUT) & found]
+    assert sum(len(x) for x in lists) == len(set().union(*lists))
+    assert set().union(*lists) == found, found ^ set().union(*lists)
+
+
 def test_lane_lists_are_whole():
     """Every left-out and timing entry names a real test of a lane
     file, and every left-out case names its stand-in."""
-    for nid in tuple(LEFT_OUT) + TIMING + HEAVY:
+    from geomx_tpu_torch import acceptance
+
+    for nid in tuple(LEFT_OUT) + TIMING + HEAVY + tuple(SLOW_COVERED) + \
+            SLOW_CASES + SLOW_TIMING:
         fname, test = nid.split("::")
-        assert fname[len("test_"):-len(".py")] in FILES, nid
+        assert fname[len("test_"):-len(".py")] in SLOW_FILES, nid
         text = (ROOT / "tests" / fname).read_text()
         assert re.search(rf"^def {re.escape(test)}\(", text, re.M), nid
+    for nid, cases in SLOW_COVERED.items():
+        src = (ROOT / "tests" / nid.split("::")[0]).read_text()
+        assert re.search(rf"@pytest\.mark\.slow\n(@.*\n)*def "
+                         rf"{nid.split('::')[1]}\(", src), nid
+        for case in cases.split(", "):
+            assert case in acceptance.CASES, (nid, case)
+            line = int(acceptance.CASES[case].source.split(":")[1])
+            assert src.splitlines()[line - 1].startswith(
+                f"def {nid.split('::')[1]}("), (nid, case)
     for nid, (reason, counterpart) in LEFT_OUT.items():
         path, test = counterpart.split("::")
         text = (ROOT / path).read_text()
@@ -421,12 +549,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Run JAX test files of the backend lane against "
                     "the port.")
-    ap.add_argument("files", nargs="*", default=list(FILES),
+    ap.add_argument("files", nargs="*", default=[],
                     help=f"lane files (default all): {', '.join(FILES)}")
     ap.add_argument("--backend", default="torch:cpu",
                     help="GEOMX_MERGE_BACKEND (torch:cpu or torch)")
+    ap.add_argument("--slow", action="store_true",
+                    help="the slow mode: SLOW_CASES, each alone")
     args = ap.parse_args(argv)
-    res = run_lane(tuple(args.files), args.backend, timeout=3000)
+    if args.slow:
+        res = run_slow_cases(args.backend)
+    else:
+        res = run_lane(tuple(args.files) or FILES, args.backend,
+                       timeout=3000)
     print(res.output[-4000:])
     for f, row in sorted(res.per_file().items()):
         print(f, row)

@@ -332,3 +332,238 @@ def test_esync_training_assigns_more_steps_to_fast_worker():
         assert hist_fast[-1][0] < hist_fast[0][0]
     finally:
         sim.shutdown()
+
+
+# ---- the slow soaks that train the JAX CNN (the lane's slow mode leaves
+# them out): held to the JAX tests' own assertions, on the port's CNN
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _wait_for(pred, timeout=20.0, every=0.02):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(every)
+    return pred()
+
+
+def _delta(base, snap, key):
+    return snap.get(key, 0) - base.get(key, 0)
+
+
+def _train_cnn(side: _Side, workers, hist, errs, num_all=None,
+               barrier_init=False, progress=None):
+    """``tests/test_eviction.py`` ``_train_cnn`` on ``side``'s CNN."""
+    x, y = side.data.synthetic_classification(n=512, shape=(8, 8, 1),
+                                              seed=3)
+    n = num_all or len(workers)
+
+    def train(kv, widx, nsteps):
+        def tick(step, _loss, _acc):
+            if progress is not None:
+                progress[widx] = step + 1
+
+        try:
+            it = side.data.ShardedIterator(x, y, 16, widx, n, seed=4)
+            hist[widx] = side.training.run_worker(
+                kv, side.params, side.grad_fn, it, nsteps,
+                barrier_init=barrier_init, log_fn=tick)
+        except Exception as e:  # noqa: BLE001 — asserted by callers
+            errs.append((widx, repr(e)))
+
+    ths = [threading.Thread(target=train, args=(kv, i, s))
+           for i, (kv, s) in enumerate(workers)]
+    for t in ths:
+        t.start()
+    return ths
+
+
+@pytest.mark.slow
+def test_crash_eviction_e2e_worker_and_local_server():
+    """``tests/test_eviction.py::test_crash_eviction_e2e_worker_and_local_
+    server`` on the port (``torch:cpu``): a worker and, separately, a
+    local server die mid-training; the survivors finish within 0.5 of
+    the unkilled control's loss, the zombie's push is fenced, the
+    replacement server warm-boots and the party folds back in, and the
+    counters say so."""
+    from geomx_tpu_torch.utils.metrics import system_snapshot
+
+    side = _Side(port=True)
+    steps, kill_after = 24, 8
+    topo = dict(num_parties=2, workers_per_party=2)
+    hb = dict(heartbeat_interval_s=0.1, heartbeat_timeout_s=0.8,
+              request_retry_s=1.0)
+
+    sim = side.sim(topo)
+    try:
+        ws = sim.all_workers()
+        ws[0].set_optimizer({"type": "adam", "lr": 0.01})
+        hist, errs = {}, []
+        for t in _train_cnn(side, [(w, steps) for w in ws], hist, errs):
+            t.join(300)
+        assert not errs, errs
+        control_loss = float(np.mean([hist[i][-1][0] for i in hist]))
+    finally:
+        sim.shutdown()
+
+    # phase A: a worker dies ungracefully mid-training
+    sim = side.sim(topo, **hb)
+    base = system_snapshot()
+    try:
+        ws = sim.all_workers()
+        ws[0].set_optimizer({"type": "adam", "lr": 0.01})
+        hist, errs = {}, []
+        jobs = [(w, kill_after if i == 1 else steps)
+                for i, w in enumerate(ws)]
+        ths = _train_cnn(side, jobs, hist, errs)
+        ths[1].join(300)
+        assert 1 in hist, errs
+        sim.kill_worker(0, 1)
+        for t in ths:
+            t.join(300)
+        assert not errs, errs
+        assert len(hist) == 4, "a survivor hung after the worker kill"
+        crash_loss = float(np.mean(
+            [hist[i][-1][0] for i in hist if i != 1]))
+        assert np.isfinite(crash_loss)
+        assert abs(crash_loss - control_loss) < 0.5, (crash_loss,
+                                                      control_loss)
+        assert sim.eviction_monitors[0].evictions == 1
+        ws[1].po.start()
+        ws[1].push(0, np.ones(4, np.float32))
+        with pytest.raises(RuntimeError, match="evicted"):
+            ws[1].wait_all()
+        snap = system_snapshot()
+        assert _delta(base, snap, "scheduler:0@p0.worker_evictions") == 1
+        assert _delta(base, snap,
+                      "server:0@p0.eviction_fenced_pushes") >= 1
+    finally:
+        sim.shutdown()
+
+    # phase B: a local server dies mid-training, its replacement rejoins
+    sim = side.sim(dict(num_parties=2, workers_per_party=1), **hb)
+    base = system_snapshot()
+    try:
+        ws = sim.all_workers()
+        ws[0].set_optimizer({"type": "adam", "lr": 0.01})
+        hist, errs, progress = {}, [], {}
+        ths = _train_cnn(side, [(w, steps) for w in ws], hist, errs,
+                         progress=progress)
+        assert _wait_for(lambda: progress.get(1, 0) >= 6, 120), progress
+        sim.kill_local_server(1)
+        time.sleep(2.5)
+        killed_at = progress.get(1, 0)
+        assert killed_at < steps, "server outlived the training run"
+        sim.restart_local_server(1)
+        assert _wait_for(
+            lambda: sim.recovery_monitor.party_unfolds == 1, 60), \
+            "party never folded back in"
+        ths[0].join(300)
+        assert 0 in hist, errs
+        sim.local_servers[0].leave_global()
+        for t in ths:
+            t.join(300)
+        assert not errs, errs
+        assert len(hist) == 2, "a worker hung across the server crash"
+        for h in hist.values():
+            assert len(h) == steps
+            assert np.isfinite([loss for loss, _ in h]).all()
+        server_loss = float(np.mean([hist[i][-1][0] for i in hist]))
+        assert abs(server_loss - control_loss) < 0.5, (server_loss,
+                                                       control_loss)
+        assert sim.recovery_monitor.party_folds == 1
+        snap = system_snapshot()
+        assert _delta(base, snap, "global_scheduler:0.party_folds") == 1
+        assert _delta(base, snap,
+                      "global_scheduler:0.party_unfolds") == 1
+        assert _delta(base, snap, "server:0@p1.warm_boots") >= 1
+        assert _delta(base, snap,
+                      "worker:0@p1.server_recoveries") >= 1
+        ls2 = sim.local_servers[1]
+        assert ls2.store and all(
+            np.isfinite(_host(v)).all() for v in ls2.store.values())
+    finally:
+        sim.shutdown()
+
+
+@pytest.mark.slow
+def test_chaos_soak_drops_joins_leaves_compression():
+    """``tests/test_robustness.py::test_chaos_soak_drops_joins_leaves_
+    compression`` on the port (``torch:cpu``): 2-party BSC training under
+    15 % message drop with a worker leaving, one joining and one killed
+    without a leave; every survivor finishes finite, the zombie's push
+    is fenced and the party stores agree."""
+    from geomx_tpu_torch.transport.van import FaultPolicy
+
+    side = _Side(port=True)
+    sim = Simulation(
+        Config(topology=Topology(num_parties=2, workers_per_party=2),
+               resend_timeout_ms=150, request_retry_s=2.0,
+               heartbeat_interval_s=0.1, heartbeat_timeout_s=1.0,
+               merge_backend="torch:cpu"),
+        fault=FaultPolicy(drop_rate=0.15, seed=11))
+    try:
+        x, y = p_data.synthetic_classification(n=512, shape=(8, 8, 1),
+                                               seed=3)
+        ws = sim.all_workers()
+        ws[0].set_optimizer({"type": "adam", "lr": 0.01})
+        for p in range(2):
+            sim.worker(p, 0).set_gradient_compression(
+                {"type": "bsc", "ratio": 0.1})
+        hist, errs = {}, []
+
+        def train(kv, widx, nw, steps, leave_after=None):
+            try:
+                it = p_data.ShardedIterator(x, y, 16, widx, nw, seed=4)
+                h = p_training.run_worker(kv, side.params, side.grad_fn, it,
+                                          steps, barrier_init=False)
+                if leave_after is not None:
+                    kv.wait_all()
+                    kv.leave_party()
+                hist[widx] = h
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errs.append((widx, repr(e)))
+
+        def phase(kvs, nw, steps, **kw):
+            hist.clear()
+            ths = [threading.Thread(target=train, args=(w, i, nw, steps),
+                                    kwargs={k: v(i) for k, v in kw.items()})
+                   for i, w in enumerate(kvs)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=300)
+            assert not errs, errs
+            assert len(hist) == len(kvs), "a worker hung"
+            for h in hist.values():
+                assert np.isfinite([loss for loss, _ in h]).all()
+
+        def stores_agree():
+            s0 = sim.local_servers[0].store
+            s1 = sim.local_servers[1].store
+            for k in s0:
+                np.testing.assert_allclose(_host(s0[k]), _host(s1[k]),
+                                           rtol=1e-4, atol=1e-5)
+
+        # phase 1: 20 steps; party 0's worker 1 leaves at the end
+        phase(ws, 4, 20, leave_after=lambda i: 20 if i == 1 else None)
+        # phase 2: a new worker joins party 1; the three train 20 more
+        w4 = sim.add_worker(1)
+        phase([ws[0]] + ws[2:] + [w4], 4, 20)
+        stores_agree()
+        # phase 3: worker:0@p1 dies without a leave; 12 more steps
+        sim.kill_worker(1, 0)
+        phase([ws[0], ws[3], w4], 3, 12)
+        assert sim.local_servers[1].evicted_workers == 1
+        assert sim.eviction_monitors[1].evictions == 1
+        ws[2].po.start()
+        ws[2].push(0, np.ones(4, np.float32))
+        with pytest.raises(RuntimeError, match="evicted"):
+            ws[2].wait_all()
+        assert sim.local_servers[1].eviction_fenced_pushes >= 1
+        stores_agree()
+    finally:
+        sim.shutdown()
