@@ -681,7 +681,14 @@ class LocalServerRecoveryMonitor(_HeartbeatActuator):
                       {"action": "party_unfold", "node": str(node)},
                       Domain.GLOBAL)
         # 3. the party's workers replay their un-ACKed requests NOW
-        self._notify_server_back(party, node)
+        for w in self.topology.workers(party):
+            try:
+                self.po.van.send(Message(
+                    recipient=w, control=Control.REJOIN,
+                    domain=Domain.GLOBAL, request=False,
+                    body={"event": "server_back", "server": str(node)}))
+            except (KeyError, OSError):
+                pass  # a dead worker is the party monitor's business
         with self._mu:
             self._quarantined.pop(party, None)
         self._q_gauge.set(len(self._quarantined))
@@ -702,25 +709,6 @@ class LocalServerRecoveryMonitor(_HeartbeatActuator):
               f"via {mode} ({reply.get('keys', 0)} keys) and folded "
               "back into global rounds", flush=True)
 
-    def _notify_server_back(self, party: int, node: NodeId) -> None:
-        """Tell the party's workers their server is back, one sender
-        thread a worker (C12): this monitor has dialed no worker before,
-        and a first dial to one that is down (a drained or dead worker)
-        retries for the fabric's bring-up window, 30 s — in line, that
-        held the monitor's sweep for those 30 s."""
-        def send(w):
-            try:
-                self.po.van.send(Message(
-                    recipient=w, control=Control.REJOIN,
-                    domain=Domain.GLOBAL, request=False,
-                    body={"event": "server_back", "server": str(node)}))
-            except (KeyError, OSError):
-                pass  # a dead worker is the party monitor's business
-
-        for w in self.topology.workers(party):
-            threading.Thread(target=send, args=(w,), daemon=True,
-                             name=f"server-back-{self.po.node}-{w}").start()
-
     def _recover(self, party: int):
         node = self.topology.server(party)
         # 1. warm boot: the local server pulls the full model state from
@@ -737,7 +725,14 @@ class LocalServerRecoveryMonitor(_HeartbeatActuator):
                       Domain.GLOBAL)
         # 3. the party's workers replay their un-ACKed requests at the
         #    revived server NOW instead of waiting out the retry backoff
-        self._notify_server_back(party, node)
+        for w in self.topology.workers(party):
+            try:
+                self.po.van.send(Message(
+                    recipient=w, control=Control.REJOIN,
+                    domain=Domain.GLOBAL, request=False,
+                    body={"event": "server_back", "server": str(node)}))
+            except (KeyError, OSError):
+                pass  # a dead worker is the party monitor's business
         with self._mu:
             self._folded.pop(party, None)
         self.party_unfolds += 1

@@ -1055,13 +1055,8 @@ class LocalServer:
         if self._flight is not None:
             self._flight.record(FlightEv.WARM_BOOT, a=len(got))
         # re-sync the party's 1/num_workers pre-scale and membership (a
-        # replacement process restarted the count at the static plan);
-        # one sender thread a peer (C12): this process has dialed no
-        # peer yet, and a first dial to one that is down (a drained
-        # worker) retries for the fabric's bring-up window, 30 s — in
-        # line, that held the warm boot's REJOIN reply, and with it the
-        # party's recovery, for those 30 s
-        self._broadcast_membership(per_peer_threads=True)
+        # replacement process restarted the count at the static plan)
+        self._broadcast_membership()
         print(f"{self.po.node}: warm boot adopted {len(got)} keys from "
               "the global tier", flush=True)
         return len(got)
@@ -1426,7 +1421,7 @@ class LocalServer:
               flush=True)
         return True
 
-    def _broadcast_membership(self, per_peer_threads: bool = False):
+    def _broadcast_membership(self):
         """Tell every party worker the new aggregation size — their
         1/num_workers gradient pre-scale must track membership or the
         post-join update stops being a mean (static plan workers +
@@ -1451,22 +1446,13 @@ class LocalServer:
         sched = self.po.topology.scheduler(self.po.node.party)
         body = {"event": "membership", "num_workers": total, "seq": seq,
                 "members": sorted(extra), "addrs": addrs}
-
-        def send(n):
+        for n in list(targets.values()) + [sched]:
             try:
                 self.po.van.send(Message(
                     recipient=n, control=Control.ADD_NODE,
                     domain=Domain.LOCAL, request=False, body=body))
             except (KeyError, OSError):
                 pass  # a down/unknown worker learns on its next join
-
-        for n in list(targets.values()) + [sched]:
-            if per_peer_threads:
-                threading.Thread(target=send, args=(n,), daemon=True,
-                                 name=f"membership-{self.po.node}-{n}"
-                                 ).start()
-            else:
-                send(n)
 
     def _handle_push(self, msg: Message, kvs: KVPairs):
         state = self._recent.check(msg)

@@ -15,8 +15,9 @@ Role/topology can also come from env (GEOMX_ROLE, GEOMX_NUM_PARTIES,
 GEOMX_WORKERS_PER_PARTY, GEOMX_NUM_GLOBAL_SERVERS, GEOMX_BASE_PORT,
 GEOMX_NODE_HOSTS), mirroring the reference's DMLC_* env surface.
 Workers run the demo CNN training; non-worker roles serve until a
-TERMINATE control message arrives (sent by worker rank-0 of party 0 when
-training finishes), like the reference's kStopServer flow.
+TERMINATE control message arrives (sent by worker rank-0 of party 0 once
+every party's workers have finished), like the reference's kStopServer
+flow.
 
 The port of the JAX package's ``launch.py``: the runtime (roles, TCP
 fabric, shutdown, exit observables) is the JAX package's; the worker
@@ -39,6 +40,10 @@ from geomx_tpu_torch.core.config import Config, NodeId, Role, Topology
 from geomx_tpu_torch.ps import Postoffice
 from geomx_tpu_torch.transport.message import Control, Domain, Message
 from geomx_tpu_torch.transport.tcp import TcpFabric, default_address_plan
+
+# when this process started: the terminator waits for lagging parties at
+# most as long as it took itself (_await_parties)
+_STARTED = time.monotonic()
 
 
 def build_runtime(node: NodeId, config: Config, base_port: int = 9200,
@@ -73,8 +78,29 @@ def build_runtime(node: NodeId, config: Config, base_port: int = 9200,
         tracer.batch_events = config.trace_batch_events
         tracer.attach(po)
 
+    # the end of the run (_end_of_training): the terminator (party 0's
+    # rank-0 worker) collects the parties that reported done and answers
+    # each report; a reporting worker notes the terminator's last answer
+    po.parties_done = set()
+    po.end_cv = threading.Condition()
+    po.end_acked = 0.0
+
     def on_control(msg: Message) -> bool:
         if msg.control is Control.TERMINATE:
+            b = msg.body if isinstance(msg.body, dict) else {}
+            if "party_done" in b:
+                with po.end_cv:
+                    po.parties_done.add(int(b["party_done"]))
+                    po.end_cv.notify_all()
+                try:
+                    po.van.send(msg.reply_to(body={"ack": True}))
+                except (KeyError, OSError):
+                    pass
+                return True
+            if "ack" in b:
+                with po.end_cv:
+                    po.end_acked = time.monotonic()
+                return True
             if node.role is Role.SCHEDULER:
                 # pass the end of the run on to the party's workers,
                 # which wait for it (_end_of_training)
@@ -343,19 +369,64 @@ def shutdown_cluster(po: Postoffice):
 
 
 def _end_of_training(po: Postoffice, kv) -> None:
-    """After a worker's last step and its party barrier: party 0's rank
-    0 ends the run (:func:`shutdown_cluster`); any other worker, when
-    heartbeats are on, stays up until the TERMINATE its party scheduler
-    passes on.  A worker that exited at once went silent while the run
-    went on, and its scheduler evicted it by heartbeat expiry (C10:
-    ``scripts/run_partition_demo.sh``'s survivor party finished first
-    and its worker was reported evicted, in both packages)."""
+    """After a worker's last step and its party barrier (every worker of
+    its party is done): party 0's rank 0, the terminator, ends the run
+    (:func:`shutdown_cluster`) once every party has reported done
+    (:func:`_await_parties`), so that a party that lags, as parties do
+    under ``--sync mixed``, is not cut off mid-round (C13).
+
+    Any other worker reports its party done to the terminator, again
+    each 0.5 s, and stays up, when heartbeats are on, until the
+    TERMINATE its party scheduler passes on: a worker that exited while
+    the run went on would fall silent and be evicted by heartbeat
+    expiry (C10).  It leaves without that TERMINATE, saying so, once
+    the terminator has not answered a report for three heartbeat
+    timeouts (at least 10 s): the terminator has exited, and the
+    forwarded TERMINATE was lost with a scheduler."""
     kv.barrier()
     if kv.party == 0 and kv.rank == 0:
-        time.sleep(0.5)  # let sibling parties drain their last rounds
+        _await_parties(po)
+        time.sleep(0.5)  # let the last round drain through the servers
         shutdown_cluster(po)
-    elif po.config.heartbeat_interval_s > 0:
-        po.terminated.wait()
+        return
+    term = po.topology.workers(0)[0]
+    patience = max(10.0, 3 * po.config.heartbeat_timeout_s)
+    started = time.monotonic()
+    report = {"party_done": kv.party}
+    domain = Domain.LOCAL if kv.party == 0 else Domain.GLOBAL
+    while True:
+        po.van.send(Message(recipient=term, control=Control.TERMINATE,
+                            domain=domain, request=True, body=report))
+        if po.terminated.wait(0.5):
+            return
+        with po.end_cv:
+            acked = po.end_acked
+        if acked and po.config.heartbeat_interval_s <= 0:
+            return  # reported; without heartbeats nothing evicts it
+        if time.monotonic() - max(started, acked) > patience:
+            print(f"{po.node}: {term} has not answered for "
+                  f"{patience:.0f} s; leaving without the end of the run",
+                  flush=True)
+            return
+
+
+def _await_parties(po: Postoffice) -> None:
+    """The terminator's wait for every party's done report, at most as
+    long as this process has run so far (at least 30 s): a party that
+    still has not finished then is reported and left behind."""
+    want = set(range(po.topology.num_parties)) - {0}
+    wait_s = max(30.0, time.monotonic() - _STARTED)
+    deadline = time.monotonic() + wait_s
+    with po.end_cv:
+        while not want <= po.parties_done:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                missing = sorted(want - po.parties_done)
+                print(f"{po.node}: ending the run after {wait_s:.0f} s "
+                      f"without a done report from parties {missing}",
+                      flush=True)
+                return
+            po.end_cv.wait(left)
 
 
 def _wait_servers_up(kv, timeout: float = 90.0):

@@ -94,12 +94,7 @@ def main(argv=None) -> int:
     plan = default_address_plan(cfg.topology, args.base_port, hosts)
     me = NodeId(Role.MASTER_WORKER, _LOAD_RANK_BASE + port % 97)
     plan[str(me)] = ("127.0.0.1", port)
-    # the cluster is up: a first dial to a replica that is down fails
-    # within one read attempt instead of retrying for the fabric's 30 s
-    # bring-up window (C14: run_serve_demo.sh's balanced reads, started
-    # after their first pick's replica was killed, listed no keys)
-    fabric = TcpFabric(plan, config=cfg,
-                       dial_window_s=cfg.serve_attempt_timeout_s)
+    fabric = TcpFabric(plan, config=cfg)
     po = Postoffice(me, cfg.topology, fabric, cfg)
     po.start()
     lb = None

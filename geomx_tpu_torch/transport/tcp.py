@@ -291,12 +291,7 @@ class TcpFabric:
 
     def __init__(self, plan: Dict[str, Tuple[str, int]],
                  fault: Optional[FaultPolicy] = None,
-                 config: Optional[Config] = None,
-                 dial_window_s: float = 30.0):
-        # how long a first dial to a peer retries while its listener
-        # comes up (see _dial); a client joining a running cluster takes
-        # a short one (C14)
-        self.dial_window_s = dial_window_s
+                 config: Optional[Config] = None):
         if fault is None:
             fault = FaultPolicy.from_config(config) if config else FaultPolicy()
         self.fault = fault
@@ -321,6 +316,9 @@ class TcpFabric:
         self._accepted: list = []
         self._established: set = set()
         self._dial_window: Dict[str, float] = {}
+        # peers being dialed off the sender's thread (_dial_or_defer):
+        # the frames sent to each meanwhile, in order
+        self._dialing: Dict[str, list] = {}
         self._udp_send: Dict[int, socket.socket] = {}  # channel -> socket
         self._udp_recv: list = []
         self._stop = False
@@ -675,12 +673,18 @@ class TcpFabric:
         with self._registry_mu:
             mu = self._conn_mus.setdefault(dest, threading.Lock())
         with mu:
+            queued = self._dialing.get(dest)
+            if queued is not None:  # behind the first dial to this peer
+                queued.append(frames)
+                return True
             conn = self._conns.get(dest)
             if conn is None or getattr(conn, "broken", False):
                 if conn is not None:  # async write failure marked it
                     conn.close()
                     self._conns.pop(dest, None)
-                conn = self._dial(dest)
+                conn = self._dial_or_defer(dest, frames)
+                if conn is None:
+                    return True
             try:
                 self._send_on(conn, frames)
             except OSError:
@@ -694,6 +698,57 @@ class TcpFabric:
                 conn = self._dial(dest)
                 self._send_on(conn, frames)
         return True
+
+    def _dial_or_defer(self, dest: str, frames) -> Optional[socket.socket]:
+        """One connect attempt to ``dest``; if it is refused while the
+        peer's bring-up window is open (never reached yet), the rest of
+        the window is waited out on a thread of its own
+        (:meth:`_dial_behind`), which sends ``frames`` and whatever
+        follows them once the peer answers: returns None then.  So no
+        send holds its thread for the window: not a relaunched server's
+        notices to a dead worker, nor a client's first read at a killed
+        replica (C12, C14).  Caller holds the destination's lock."""
+        try:
+            return self._dial(dest, retry_for=0.0)
+        except OSError as e:
+            transient = (isinstance(e, TimeoutError)
+                         or e.errno in self._TRANSIENT_ERRNOS)
+            with self._registry_mu:
+                opened = self._dial_window.get(dest, 0.0)
+                patient = (transient and not self._stop
+                           and dest not in self._established
+                           and time.monotonic() < opened + self.DIAL_WINDOW_S)
+            if not patient:
+                raise
+        self._dialing[dest] = [frames]
+        threading.Thread(target=self._dial_behind, args=(dest,),
+                         daemon=True, name=f"dial-{dest}").start()
+        return None
+
+    def _dial_behind(self, dest: str) -> None:
+        """Dial ``dest`` through its bring-up window, then send what
+        queued for it in order; a peer that never answers loses those
+        messages, ledgered as drops (the resend layer owns recovery, as
+        for a dial that fails in the sender's thread)."""
+        try:
+            conn = self._dial(dest)
+        except OSError:
+            conn = None
+        with self._registry_mu:
+            mu = self._conn_mus[dest]
+        with mu:
+            queued = self._dialing.pop(dest)
+            while conn is not None and queued:
+                try:
+                    self._send_on(conn, queued[0])
+                except OSError:
+                    conn.close()
+                    self._conns.pop(dest, None)
+                    break
+                queued.pop(0)
+            with self._registry_mu:
+                for _ in queued:
+                    self._count_drop()
 
     def _send_on(self, conn, frames) -> None:
         """One message onto ``conn`` — blocking ``sendmsg`` loop on the
@@ -725,7 +780,10 @@ class TcpFabric:
     _TRANSIENT_ERRNOS = frozenset({errno.ECONNREFUSED, errno.ECONNRESET,
                                    errno.ECONNABORTED, errno.ETIMEDOUT})
 
-    def _dial(self, dest: str, retry_for: Optional[float] = None
+    # how long a first dial to a peer retries while its listener comes up
+    DIAL_WINDOW_S = 30.0
+
+    def _dial(self, dest: str, retry_for: float = DIAL_WINDOW_S
               ) -> socket.socket:
         """Connect to a peer, retrying while its listener comes up.
 
@@ -741,8 +799,6 @@ class TcpFabric:
         blocked behind a dead destination.  Redelivery to a restarted
         peer is the resend layer's job."""
         host, port = self.plan[dest]
-        if retry_for is None:
-            retry_for = self.dial_window_s
         with self._registry_mu:
             if dest in self._established:
                 deadline = 0.0

@@ -37,30 +37,87 @@ COPIES = ("transport/tcp.py", "chaos/__init__.py", "chaos/netfault.py",
 # repairs the port's copies carry (ROADMAP C): (the port's text, the
 # JAX original's); with them reverted the copy equals its original
 REPAIRS = {
-    "transport/tcp.py": [  # C14: a fabric's dial window is a parameter
-        ("""                 config: Optional[Config] = None,
-                 dial_window_s: float = 30.0):
-        # how long a first dial to a peer retries while its listener
-        # comes up (see _dial); a client joining a running cluster takes
-        # a short one (C14)
-        self.dial_window_s = dial_window_s
-""", """                 config: Optional[Config] = None):
+    "transport/tcp.py": [  # C12, C14: a first dial leaves the sender
+        ("""        self._dial_window: Dict[str, float] = {}
+        # peers being dialed off the sender's thread (_dial_or_defer):
+        # the frames sent to each meanwhile, in order
+        self._dialing: Dict[str, list] = {}
+""",
+         """        self._dial_window: Dict[str, float] = {}
 """),
-        ("""    def _dial(self, dest: str, retry_for: Optional[float] = None
+        ("""        with mu:
+            queued = self._dialing.get(dest)
+            if queued is not None:  # behind the first dial to this peer
+                queued.append(frames)
+                return True
+            conn = self._conns.get(dest)""",
+         """        with mu:
+            conn = self._conns.get(dest)"""),
+        ("""                conn = self._dial_or_defer(dest, frames)
+                if conn is None:
+                    return True
+""",
+         """                conn = self._dial(dest)
+"""),
+        ('''    def _dial_or_defer(self, dest: str, frames) -> Optional[socket.socket]:
+        """One connect attempt to ``dest``; if it is refused while the
+        peer's bring-up window is open (never reached yet), the rest of
+        the window is waited out on a thread of its own
+        (:meth:`_dial_behind`), which sends ``frames`` and whatever
+        follows them once the peer answers: returns None then.  So no
+        send holds its thread for the window: not a relaunched server's
+        notices to a dead worker, nor a client's first read at a killed
+        replica (C12, C14).  Caller holds the destination's lock."""
+        try:
+            return self._dial(dest, retry_for=0.0)
+        except OSError as e:
+            transient = (isinstance(e, TimeoutError)
+                         or e.errno in self._TRANSIENT_ERRNOS)
+            with self._registry_mu:
+                opened = self._dial_window.get(dest, 0.0)
+                patient = (transient and not self._stop
+                           and dest not in self._established
+                           and time.monotonic() < opened + self.DIAL_WINDOW_S)
+            if not patient:
+                raise
+        self._dialing[dest] = [frames]
+        threading.Thread(target=self._dial_behind, args=(dest,),
+                         daemon=True, name=f"dial-{dest}").start()
+        return None
+
+    def _dial_behind(self, dest: str) -> None:
+        """Dial ``dest`` through its bring-up window, then send what
+        queued for it in order; a peer that never answers loses those
+        messages, ledgered as drops (the resend layer owns recovery, as
+        for a dial that fails in the sender's thread)."""
+        try:
+            conn = self._dial(dest)
+        except OSError:
+            conn = None
+        with self._registry_mu:
+            mu = self._conn_mus[dest]
+        with mu:
+            queued = self._dialing.pop(dest)
+            while conn is not None and queued:
+                try:
+                    self._send_on(conn, queued[0])
+                except OSError:
+                    conn.close()
+                    self._conns.pop(dest, None)
+                    break
+                queued.pop(0)
+            with self._registry_mu:
+                for _ in queued:
+                    self._count_drop()
+
+''',
+         """"""),
+        ("""    # how long a first dial to a peer retries while its listener comes up
+    DIAL_WINDOW_S = 30.0
+
+    def _dial(self, dest: str, retry_for: float = DIAL_WINDOW_S
               ) -> socket.socket:""",
          """    def _dial(self, dest: str, retry_for: float = 30.0) -> socket.socket:"""),
-        ("""        if retry_for is None:
-            retry_for = self.dial_window_s
-""", ""),
-    ],
-    "serve/load.py": [  # C14: the load driver dials within one attempt
-        ("""    # the cluster is up: a first dial to a replica that is down fails
-    # within one read attempt instead of retrying for the fabric's 30 s
-    # bring-up window (C14: run_serve_demo.sh's balanced reads, started
-    # after their first pick's replica was killed, listed no keys)
-    fabric = TcpFabric(plan, config=cfg,
-                       dial_window_s=cfg.serve_attempt_timeout_s)""",
-         """    fabric = TcpFabric(plan, config=cfg)"""),
     ],
 }
 
