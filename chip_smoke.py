@@ -157,8 +157,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    within 5e-2 relative L2), then ``run_worker_overlapped`` on a 2 × 2 +
    1 Simulation with P3, FSA, Adam (the LM geo-round's lr, 3e-3), no
    compression, the torch backend on the
-   card, 8 steps (batch 8): the launch counts, set to 0 just before and
-   read just after, must be exactly 4 workers × 8 steps × 4 layers × 2
+   card, 4 steps (batch 8): the launch counts, set to 0 just before and
+   read just after, must be exactly 4 workers × 4 steps × 4 layers × 2
    bf16 flash forwards (the forward walk and each stage's recompute) and
    × 1 bf16 flash backward, and nothing else; each worker's loss falls
    and the four workers' final stage params are bitwise equal; steps/s
@@ -300,7 +300,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``tests/test_torch_mixed_sync.py`` on the card (MixedSync under 2bit
    and bsc with DC-ASGD and the device Adam, and a 2bit partition
    catch-up, the decoded pushes CUDA tensors), held to the numpy
-   backend;
+   backend; and the JAX package's device-backend contract suites
+   (``test_merge_backend.py``, ``test_device_opt.py``,
+   ``test_device_codec.py``, through the runner's contract rewrite onto
+   ``TorchBackend`` with 8 device slots on the card) and its schedulers
+   (``test_schedulers.py``): 0 failed, 0 skipped, no process left by
+   pytest, and the codec kernels (2-bit quantize, dequantize, DGC update)
+   launched more than 0 times each in that process (its printed
+   ``kernel_launches``); the lane's host group (data, native, multihost,
+   metrics doc) runs in tier-1 only;
 12. the JAX repo's operator scripts and slow cases on the card: 12a
    every ``scripts/run_*.sh`` the scripts lane
    (``tests/test_torch_scripts_lane.py``) marks to run — the ten
@@ -312,9 +320,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    role on the card, the servers on the torch backend), each on its
    own port range, in the background from the end of phase 3b (phases
    4-10 gate no time) until phase 10's timed cases, all but the tours
-   of ``SCRIPTS_QUIET`` ``SCRIPT_STREAMS`` at once; after phase 11 the
+   of ``SCRIPTS_QUIET`` ``SCRIPT_STREAMS`` at once; after phase 10 the
    quiet tours, the sequences of ``QUIET_STREAMS`` side by side, then
-   ``QUIET_ALONE`` alone; each held to
+   ``QUIET_BESIDE_LANE`` side by side beside phase 11's lane; each held to
    its own exit code and assertions and every launched cluster to its
    exit lines (every server ``merge_backend=torch``, every worker
    ``steps=``), each local server of the bsc config to 60 DGC updates
@@ -335,6 +343,19 @@ is built, then waits for every build before it times anything (C6).
 ``python3 chip_smoke.py --c6-probe`` times phase 2 in the old order
 (builds still running, each batch logged with the builds then running)
 and again after the join.
+
+Every child process starts through the registry of
+``geomx_tpu_torch/utils/reaper.py`` (the lane's pytest, the scripts,
+every launcher role of phases 7b and 10), each in a session of its own,
+and the run is a ``reaper.Run``: the script is a child subreaper (an
+orphaned descendant comes back to it), SIGTERM and SIGINT kill every
+registered group and exit non-zero, a watchdog kills everything and
+exits non-zero, naming the running phase, once ``DEADLINE_S`` (1140 s)
+has passed since the start, and each phase's end fails the run, naming
+the phase and each process's argv, if a process outlived it (but the
+background scripts of phase 12a, until phase 10 joins them).  On every
+way out it kills every registered group and every descendant and logs
+what is still alive; a process alive at the end fails the run.
 
 Prints, before the last line, the kernel table as one JSON object, and
 as the last line ``{"ok": true, "device": {...}}``.  Writes the kernel
@@ -459,7 +480,10 @@ SP_MESH = {"dp": 1, "sp": 4, "tp": 1}
 STAGED_WIDTHS = dict(vocab=8192, d_model=384, n_heads=6, n_layers=4,
                      d_ff=1536, max_seq=128)
 STAGED_PARAMS = 13_421_952
-STAGED_STEPS = 8
+# 4 steps (the steady rate skips the first two): beside the background
+# scripts a step takes 10-16 s on the card, and the whole run must stay
+# well under its own deadline
+STAGED_STEPS = 4
 STAGED_BATCH = 8
 # Adam at the LM geo-round's rate (LM_ARGS): the launcher's 0.01
 # (scripts/run_p3.sh) made this LM's loss rise over 8 steps on the card
@@ -531,6 +555,15 @@ MERGE_EF_ROUNDS = 40
 # phase 11: the backend lane's pytest subprocess time limit, seconds, and
 # the port's MixedSync tests it runs beside the lane's files
 LANE_TIMEOUT_S = 600
+# the run's own deadline from its start, below the call's 1200 s: past it
+# a watchdog kills every child, names the running phase and exits
+# non-zero (geomx_tpu_torch/utils/reaper.py)
+DEADLINE_S = 1140.0
+_T_START = time.monotonic()
+PHASES = ("1-2", "3", "3b", "4", "4b", "4c", "6", "7a", "7b", "8a", "8b",
+          "8c", "8d", "8e", "9a", "9b", "9c", "9d", "10", "12a-quiet",
+          "11", "12a",
+          "12b", "report")
 MIXED_SYNC_TESTS = "tests/test_torch_mixed_sync.py"
 # phase 10: clusters of the untimed acceptance cases run at once
 ACCEPT_PARALLEL = 4
@@ -538,15 +571,21 @@ ACCEPT_PARALLEL = 4
 # limit (its own waits are its own), a slow case's limit, and each
 # script's wall on the card (the pool's order)
 SCRIPT_STREAMS = 3
-# tours that failed beside other clusters on the card: after phase 11,
-# QUIET_STREAMS (each a sequence) side by side, then the tours of
-# QUIET_ALONE one at a time with nothing else running
+# tours that failed beside other clusters on the card: after phase 10,
+# QUIET_STREAMS (each a sequence) side by side with nothing else
+# running, then the tours of QUIET_BESIDE_LANE side by side beside
+# phase 11's lane (one pytest process, no cluster; the status tour's
+# RTT alert fired beside churn, churn itself passed beside two tours;
+# the partition tour's 12 s blackhole ended before its local server
+# entered degraded mode once in the pool, beside phases 4-6)
 QUIET_STREAMS = (("run_serve_demo.sh", "run_adaptive_demo.sh"),
                  ("run_status_demo.sh", "run_postmortem_demo.sh"))
-QUIET_ALONE = ("run_churn_demo.sh",)
-SCRIPTS_QUIET = tuple(n for seq in QUIET_STREAMS for n in seq) + QUIET_ALONE
+QUIET_BESIDE_LANE = ("run_churn_demo.sh", "run_partition_demo.sh")
+SCRIPTS_QUIET = (tuple(n for seq in QUIET_STREAMS for n in seq)
+                 + QUIET_BESIDE_LANE)
 SCRIPT_TIMEOUT_S = 420
 SLOW_CASE_TIMEOUT_S = 300
+SLOW_LANE_DEADLINE_S = 3500.0
 SCRIPT_WALL_HINT_S = {      # each alone on an H100 80GB HBM3
     "run_serve_demo.sh": 154.8, "run_churn_demo.sh": 100.0,
     "run_postmortem_demo.sh": 80.8, "run_integrity_demo.sh": 77.2,
@@ -2187,10 +2226,11 @@ def _stat(outs: dict, pattern: str, roles=None) -> int:
 
 def run_launched_clusters() -> dict:
     """7b: the launcher, every role its own process over loopback TCP on
-    this card: the flagship LM under MPQ (2 × 2 + 1), then the P3
-    staged MLP (1 × 1 + 1).  The kernels are built already; a child
-    only loads them."""
+    this card: the flagship LM under MPQ (2 × 2 + 1) and, side by side
+    with it, the P3 staged MLP (1 × 1 + 1).  The kernels are built
+    already; a child only loads them."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
     from geomx_tpu_torch.launch import run_local_cluster
     from geomx_tpu_torch.ops.kernels import flash_attention as FK
@@ -2200,8 +2240,9 @@ def run_launched_clusters() -> dict:
         "a kernel library is not built: a child process would build it"
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, GEOMX_MPQ_SIZE_BOUND="100000")
-    out = {}
-    for name, (parties, workers, args, deadline) in LAUNCHED.items():
+
+    def one(name):
+        parties, workers, args, deadline = LAUNCHED[name]
         t0 = time.perf_counter()
         outs = run_local_cluster(parties, workers, args, env=env,
                                  deadline_s=deadline, cwd=root)
@@ -2247,8 +2288,11 @@ def run_launched_clusters() -> dict:
             assert rec["pq_overtakes"] > 0, "the priority queue never " \
                 "reordered a send"
         log(f"launched {name}: {rec}")
-        out[name] = rec
-    return out
+        return rec
+
+    with ThreadPoolExecutor(len(LAUNCHED)) as ex:
+        futures = {name: ex.submit(one, name) for name in LAUNCHED}
+        return {name: f.result() for name, f in futures.items()}
 
 
 # ---- phase 10: the JAX package's process-level acceptance suite ----------
@@ -3373,15 +3417,19 @@ def _lane_runner():
 
 
 def run_backend_lane() -> dict:
-    """11: the JAX package's in-process runtime suites against the port
-    with every server on the card, and C7's MixedSync and catch-up tests
-    (``tests/test_torch_mixed_sync.py`` under
-    ``GEOMX_MIXED_SYNC_BACKEND=torch``) beside them, in one pytest
-    subprocess (CUDA starts once)."""
+    """11: the JAX package's in-process runtime suites, its device-backend
+    contract suites (merge backend, device optimizer, device codec) and
+    its schedulers against the port with every server on the card, and
+    C7's MixedSync and catch-up tests (``tests/test_torch_mixed_sync.py``
+    under ``GEOMX_MIXED_SYNC_BACKEND=torch``) beside them, in one pytest
+    subprocess (CUDA starts once): 0 failed, 0 skipped, and the codec
+    kernels launched in that process (the contract suites reach them).
+    The lane's host group (``GROUPS["host"]``) holds no device state and
+    runs in tier-1 only."""
     import torch
 
     lane_mod = _lane_runner()
-    files = lane_mod.FILES
+    files = lane_mod.CARD_FILES
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "chiprun_out")
     work = os.path.join(out_dir, "chip_smoke_lane")
@@ -3411,9 +3459,15 @@ def run_backend_lane() -> dict:
     assert not empty, f"lane files with no case run: {empty}"
     skipped = {n: r["skipped"] for n, r in per_file.items() if r["skipped"]}
     assert not skipped, f"lane cases skipped on the card: {skipped}"
+    assert not res.leftovers, \
+        f"the lane's pytest left processes running: {res.leftovers}"
+    log(f"lane codec kernel launches in its process: {res.kernel_launches}")
+    for name in ("quantize_2bit", "dequantize_2bit", "dgc_update"):
+        assert res.kernel_launches.get(name, 0) > 0, \
+            f"the lane launched no {name}: {res.kernel_launches}"
     torch.cuda.empty_cache()
     return {"files": per_file, "failed": res.failed(), "rc": res.rc,
-            "seconds": res.wall_s}
+            "seconds": res.wall_s, "kernel_launches": res.kernel_launches}
 
 
 # ---- phase 12: the JAX repo's scripts and slow cases on the card --------
@@ -3428,7 +3482,7 @@ class ScriptPool:
     background from the end of phase 3b, ``SCRIPT_STREAMS`` at a time
     on their own port ranges (phases 4-10 gate no time, and run as they
     did beside them; phase 10's timed cases wait for :meth:`join`); the
-    quiet tours wait for :meth:`finish`.  Each script is held
+    quiet tours run in :meth:`quiet`, and :meth:`finish` waits for them.  Each script is held
     to its own exit code and assertions and every launched cluster to
     its exit lines (every server ``merge_backend=torch``, every worker
     ``steps=``), the bsc config's local servers to 60 DGC updates each,
@@ -3440,6 +3494,7 @@ class ScriptPool:
         from concurrent.futures import ThreadPoolExecutor
 
         from geomx_tpu_torch.ops.kernels import quantize_cuda as C
+        from geomx_tpu_torch.utils import reaper
 
         assert not C.LIB.stale(), \
             "the codec library is not built: a child process would build it"
@@ -3453,19 +3508,32 @@ class ScriptPool:
         self.pooled = sorted((n for n in names if n not in SCRIPTS_QUIET),
                              key=lambda n: -SCRIPT_WALL_HINT_S.get(n, 30))
         log(f"phase 12a: {len(self.pooled)} scripts {SCRIPT_STREAMS} at once "
-            f"in the background; after phase 11 {QUIET_STREAMS} side by "
-            f"side, then {QUIET_ALONE} alone")
+            f"in the background; after phase 10 {QUIET_STREAMS} side by "
+            f"side, then {QUIET_BESIDE_LANE} beside phase 11")
         self.t0 = time.perf_counter()
         self.results = {}
+        self.beside_lane = None
         self.ex = ThreadPoolExecutor(SCRIPT_STREAMS)
-        self.futures = {n: self.ex.submit(self._one, n) for n in self.pooled}
+        # the pooled scripts may outlive a phase: their groups carry the
+        # tag the run's phase ends spare
+        self.futures = {n: self.ex.submit(self._one, n, reaper.BACKGROUND)
+                        for n in self.pooled}
 
-    def _one(self, name):
-        res = self.lane.run_script(name, "cuda", workdir=self.work,
-                                   timeout=SCRIPT_TIMEOUT_S)
+    def _one(self, name, tag=""):
+        from geomx_tpu_torch.utils import reaper
+
+        with reaper.tagged(tag):
+            res = self.lane.run_script(name, "cuda", workdir=self.work,
+                                       timeout=SCRIPT_TIMEOUT_S)
         self.lane.write_output(res, self.out_dir / "chip_smoke")
         log(f"script {self.lane.summary(res)}")
         return res
+
+    def cancel(self) -> None:
+        """Start no more script (the run is ending)."""
+        self.ex.shutdown(wait=False, cancel_futures=True)
+        if self.beside_lane is not None:
+            self.beside_lane.shutdown(wait=False, cancel_futures=True)
 
     def join(self) -> float:
         """Wait for the background scripts; their wall (s)."""
@@ -3476,19 +3544,31 @@ class ScriptPool:
             f"{self.pooled_s:.1f} s")
         return self.pooled_s
 
-    def finish(self) -> dict:
-        """Run the quiet scripts, then fail on any failed script."""
+    def _stream(self, seq):
+        return {n: self._one(n) for n in seq}
+
+    def quiet(self) -> None:
+        """Run the sequences of ``QUIET_STREAMS`` side by side, then start
+        the tours of ``QUIET_BESIDE_LANE`` side by side in the background
+        (tagged so that phase 11's end spares them)."""
         from concurrent.futures import ThreadPoolExecutor
 
-        def stream(seq):
-            return {n: self._one(n) for n in seq}
+        from geomx_tpu_torch.utils import reaper
 
-        t0 = time.perf_counter()
+        self.quiet_t0 = time.perf_counter()
         with ThreadPoolExecutor(len(QUIET_STREAMS)) as ex:
-            for done in ex.map(stream, QUIET_STREAMS):
+            for done in ex.map(self._stream, QUIET_STREAMS):
                 self.results.update(done)
-        self.results.update(stream(QUIET_ALONE))
-        quiet_s = time.perf_counter() - t0
+        self.beside_lane = ThreadPoolExecutor(len(QUIET_BESIDE_LANE))
+        self.beside_futures = [self.beside_lane.submit(
+            self._one, n, reaper.BACKGROUND) for n in QUIET_BESIDE_LANE]
+
+    def finish(self) -> dict:
+        """Wait for the quiet tours, then fail on any failed script."""
+        self.results.update(zip(QUIET_BESIDE_LANE, (
+            f.result() for f in self.beside_futures)))
+        self.beside_lane.shutdown()
+        quiet_s = time.perf_counter() - self.quiet_t0
         bad = {n: self.lane.summary(r) + "\n" + r.output[-2500:]
                for n, r in self.results.items() if not r.ok()}
         assert not bad, f"scripts failed on the card: {bad}"
@@ -3498,7 +3578,8 @@ class ScriptPool:
                                 "kernel_launches": r.kernel_launches}
                             for n, r in self.results.items()},
                 "streams": SCRIPT_STREAMS, "quiet_streams": QUIET_STREAMS,
-                "quiet_alone": QUIET_ALONE, "pooled_s": self.pooled_s,
+                "quiet_beside_lane": QUIET_BESIDE_LANE,
+                "pooled_s": self.pooled_s,
                 "quiet_s": quiet_s}
 
 
@@ -3613,10 +3694,33 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    from geomx_tpu_torch.utils import reaper
+
+    try:
+        with reaper.Run(DEADLINE_S - (time.monotonic() - _T_START), PHASES,
+                        log=log, name="chip_smoke") as run:
+            rows = run_phases(run)
+    except reaper.Leftover as e:
+        log(f"chip_smoke: {e}")
+        return 1
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(run) -> list:
+    """Phases 1-12 under ``run`` (a :class:`reaper.Run`); the kernel
+    rows of the report."""
+    import torch
+
     from geomx_tpu_torch.core.platform import resolve_device
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
 
     # a float32 reference states its matmul and convolution precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3641,25 +3745,26 @@ def main() -> int:
         f"{ {n: round(v, 1) for n, v in build_s.items()} } s")
     times = time_kernels(dev, CODEC_TIME_SIZES, _codec_iters, builds)
     sweep = time_lm_sweep(dev, builds)
-    log(f"phases 1-2 done in {time.perf_counter() - t0:.1f} s")
+    run.done("1-2")
 
     flash = check_flash(dev)
     flash["fixed_order"] = check_flash_ordered(dev)
     flash["config_deterministic"] = check_config_deterministic(dev)
-    log(f"phase 3 done in {time.perf_counter() - t0:.1f} s")
+    run.done("3")
     block = check_block(dev)
-    log(f"phase 3b done in {time.perf_counter() - t0:.1f} s")
+    run.done("3b")
     # the time gates are behind us: phase 12a's load-tolerant scripts
     # start in the background, beside phases 4-10's untimed work
     scripts_pool = ScriptPool()
+    run.on_end.append(scripts_pool.cancel)
     full, refs = check_full_width_step(dev)
-    log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
+    run.done("4")
     sp = check_sp_step(dev, refs)
     del refs
     torch.cuda.empty_cache()
-    log(f"phase 4b done in {time.perf_counter() - t0:.1f} s")
+    run.done("4b")
     f32_step = check_f32_step(dev)
-    log(f"phase 4c done in {time.perf_counter() - t0:.1f} s")
+    run.done("4c")
 
     check_reference()
 
@@ -3686,48 +3791,50 @@ def main() -> int:
         geo[path] = run_sync_mode(extra)
         geo[path]["launches"] = all_launches()
         log(f"main-path launches under {path}: {geo[path]['launches']}")
-    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+    run.done("6")
     torch.cuda.empty_cache()
     staged = check_staged_lm(dev)
     torch.cuda.empty_cache()
-    log(f"phase 7a done in {time.perf_counter() - t0:.1f} s")
+    run.done("7a")
     launched = run_launched_clusters()
-    log(f"phase 7b done in {time.perf_counter() - t0:.1f} s")
+    run.done("7b")
     torch.cuda.empty_cache()
     moe = check_moe_lm(dev)
-    log(f"phase 8a done in {time.perf_counter() - t0:.1f} s")
+    run.done("8a")
     moe["georound"] = check_moe_georound("2bit")
     moe["georound_none"] = check_moe_georound("none")
-    log(f"phase 8b done in {time.perf_counter() - t0:.1f} s")
+    run.done("8b")
     zoo = check_zoo(dev)
     zoo["georound"] = run_zoo_georound()
-    log(f"phase 8c done in {time.perf_counter() - t0:.1f} s")
+    run.done("8c")
     int8 = check_int8(dev)
-    log(f"phase 8d done in {time.perf_counter() - t0:.1f} s")
+    run.done("8d")
     par = check_parity(dev)
-    log(f"phase 8e done in {time.perf_counter() - t0:.1f} s")
+    run.done("8e")
     torch.cuda.empty_cache()
     tp = check_tp(dev)
-    log(f"phase 9a done in {time.perf_counter() - t0:.1f} s")
+    run.done("9a")
     pp = check_pp(dev)
-    log(f"phase 9b done in {time.perf_counter() - t0:.1f} s")
+    run.done("9b")
     dpr = check_dp(dev)
-    log(f"phase 9c done in {time.perf_counter() - t0:.1f} s")
+    run.done("9c")
     rung = check_merge_rung(dev)
-    log(f"phase 9d done in {time.perf_counter() - t0:.1f} s")
+    run.done("9d")
     torch.cuda.empty_cache()
     accept = run_acceptance(before_timed=scripts_pool.join)
-    log(f"phase 10 done in {time.perf_counter() - t0:.1f} s "
-        f"({accept['seconds']:.1f} s)")
+    log(f"phase 10: {accept['seconds']:.1f} s")
+    run.done("10")
+    scripts_pool.quiet()
+    run.done("12a-quiet")
     lane = run_backend_lane()
-    log(f"phase 11 done in {time.perf_counter() - t0:.1f} s "
-        f"({lane['seconds']:.1f} s)")
+    log(f"phase 11: {lane['seconds']:.1f} s")
+    run.done("11")
     scripts = scripts_pool.finish()
-    log(f"phase 12a done in {time.perf_counter() - t0:.1f} s (the "
-        f"background scripts {scripts['pooled_s']:.1f} s, the quiet ones "
-        f"{scripts['quiet_s']:.1f} s)")
+    log(f"phase 12a: the background scripts {scripts['pooled_s']:.1f} s, "
+        f"the quiet ones {scripts['quiet_s']:.1f} s")
+    run.done("12a")
     trace = run_trace_counterpart()
-    log(f"phase 12b done in {time.perf_counter() - t0:.1f} s")
+    run.done("12b")
     # every path's launches by kernel; the launched LM's DGC updates ran
     # in the local servers' processes, which printed them
     path_launches = {path: rec["launches"] for path, rec in geo.items()}
@@ -3842,11 +3949,7 @@ def main() -> int:
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows
 
 
 def slow_lane_main(argv) -> int:
@@ -3857,10 +3960,14 @@ def slow_lane_main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from geomx_tpu_torch.utils import reaper
+
     device_report()
     for f in start_cuda_builds().values():
         f.result()
-    rec = run_slow_lane(argv or None)
+    with reaper.Run(SLOW_LANE_DEADLINE_S, ("slow-lane",), log=log,
+                    name="chip_smoke --slow-lane"):
+        rec = run_slow_lane(argv or None)
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "chiprun_out",
                            "chip_smoke_slow_lane.json"), "w") as f:

@@ -4778,6 +4778,36 @@ class GlobalServer:
                 out.get("codec_d2h_bytes") or 0)
         return out
 
+    def _await_inflight_at_exit(self, timeout_s: float = 10.0) -> dict:
+        """The process is about to exit (the launcher's last step): stop
+        the replication stream (no snapshot starts after), join its ship
+        threads, then synchronize the backend's device, all within
+        ``timeout_s``.  A daemon thread still inside a device call when
+        the interpreter finalizes is ended there, and the process can
+        abort ("terminate called without an active exception", ROADMAP
+        C15).  ``_mu`` is not taken: a merge lane may hold a stripe while
+        it waits on peers that are gone.  Returns what it waited for."""
+        deadline = time.monotonic() + timeout_s
+        if self._repl is not None:
+            self._repl.stopped = True
+        name = f"repl-ship-{self.po.node}"
+        joined = set()
+        while time.monotonic() < deadline:
+            ships = [t for t in threading.enumerate()
+                     if t.name == name and t.is_alive()]
+            if not ships:
+                break
+            for t in ships:
+                t.join(max(0.0, deadline - time.monotonic()))
+            joined.update(ships)
+        dev = getattr(self._backend, "device", None)
+        if getattr(dev, "type", None) == "cuda":
+            import torch
+
+            torch.cuda.synchronize(dev)
+        return {"ships": len(joined),
+                "ships_alive": sum(t.is_alive() for t in joined)}
+
     def stop(self):
         if self._repl is not None:
             self._repl.stop()

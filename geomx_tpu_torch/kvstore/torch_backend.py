@@ -61,6 +61,7 @@ import torch
 from geomx_tpu_torch.core.platform import resolve_device
 from geomx_tpu_torch.kvstore.backend import (MergeBackend, _accumulate_kernel,
                                              resolve_codec_device,
+                                             resolve_merge_backend,
                                              resolve_opt_device)
 from geomx_tpu_torch.ops import quantize as _q
 from geomx_tpu_torch.ops.quantize import _f32
@@ -126,6 +127,9 @@ class TorchBackend(MergeBackend):
     max_lanes = 4
 
     def __init__(self, config=None, device=None, devices=None):
+        if device is None and config is not None and \
+                resolve_merge_backend(config) == "torch:cpu":
+            device = "cpu"   # the device the config names
         self.device = resolve_device(device)
         if devices is None:
             devices = _MESH_DEVICES
@@ -534,10 +538,30 @@ class DeviceAdam(DeviceOptimizer):
             (g * _f32(1 - self.beta2)).mul_(g))
         # bias corrections computed host-side in f64 then f32-cast —
         # the weak-scalar cast numpy applies to the division
-        mhat = st["m"] / _f32(1 - self.beta1 ** st["t"])
-        vhat = st["v"] / _f32(1 - self.beta2 ** st["t"])
+        mhat = _div_rn(st["m"], 1 - self.beta1 ** st["t"])
+        vhat = _div_rn(st["v"], 1 - self.beta2 ** st["t"])
         return w - mhat.mul_(_f32(self.lr)).div_(
-            vhat.sqrt_().add_(_f32(self.eps)))
+            _sqrt_rn_(vhat).add_(_f32(self.eps)))
+
+
+def _div_rn(t: torch.Tensor, c: float) -> torch.Tensor:
+    """``t / c`` rounded to nearest, ``c`` cast to f32 as numpy casts a
+    Python float.  On CUDA torch divides by a host scalar as a multiply
+    by its reciprocal, which rounds twice; a 0-dim tensor on ``t``'s
+    device (filled there, no host copy) is divided elementwise."""
+    return t / torch.full((), _f32(c), dtype=torch.float32, device=t.device)
+
+
+def _sqrt_rn_(t: torch.Tensor) -> torch.Tensor:
+    """``t.sqrt_()`` rounded to nearest, as IEEE (and numpy, and XLA)
+    round it.  CUDA's square root is; torch's vectorised CPU kernel is
+    not (AVX-512: about 0.6 % of f32 values one ulp off), so on the host
+    the tensor's own memory goes through numpy's."""
+    if t.device.type == "cpu":
+        a = t.numpy()
+        np.sqrt(a, out=a)
+        return t
+    return t.sqrt_()
 
 
 _DEVICE_OPTS = {"sgd": DeviceSgd, "nag": DeviceNag, "adam": DeviceAdam}

@@ -926,11 +926,15 @@ class LocalCluster:
         ``grace_s`` once the others have exited."""
         import subprocess
 
-        p = subprocess.Popen(
+        from geomx_tpu_torch.utils import reaper
+
+        # a session of its own, registered: the role and anything it
+        # starts die together, and with the program that started them
+        p = reaper.popen(
             [sys.executable, "-m", "geomx_tpu_torch.launch", "--role",
-             role or key, *self.common, *extra], cwd=self.cwd,
-            env=self.env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+             role or key, *self.common, *extra], what=f"role {key}",
+            cwd=self.cwd, env=self.env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
         lines = []
 
         def read():
@@ -965,9 +969,12 @@ class LocalCluster:
             time.sleep(0.05)
 
     def kill(self, key: str) -> str:
-        """SIGKILL ``key``; its output moves to the returned key."""
+        """SIGKILL ``key`` (its process group); its output moves to the
+        returned key."""
+        from geomx_tpu_torch.utils import reaper
+
         p = self.procs.pop(key)
-        p.kill()
+        reaper.release(p.pid)
         p.wait()
         self._readers[key].join(5)
         self._killed += 1
@@ -1005,10 +1012,12 @@ class LocalCluster:
         return out
 
     def close(self) -> None:
+        """Kill every process's group (what a role left behind with it)."""
+        from geomx_tpu_torch.utils import reaper
+
         for p in self.procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            reaper.release(p.pid)
+            p.wait()
 
 
 def run_local_cluster(parties: int, workers: int, extra_args=(),
@@ -1528,6 +1537,10 @@ def main(argv=None):
                 _json.dump(state, f, indent=1)
             print(f"{node}: metrics exposition + cluster state -> "
                   f"{obs_dir}", flush=True)
+    if hasattr(role_obj, "_await_inflight_at_exit"):
+        # a global server's replication ship and device work end before
+        # the interpreter does (C15)
+        role_obj._await_inflight_at_exit()
     po.stop()
     return 0
 

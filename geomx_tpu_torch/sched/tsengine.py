@@ -168,6 +168,10 @@ class TsClient:
         import collections
 
         self._cv = threading.Condition()
+        # set by stop(): a round still waiting on the scheduler or on a
+        # relay's ack ends at once (the shared pool that runs it outlives
+        # this node, and a process's exit joins that pool)
+        self._stopped = False
         self._replies: Dict[int, Optional[str]] = {}
         self._acks: set = set()
         self._ack_order: "collections.deque" = collections.deque()
@@ -248,6 +252,9 @@ class TsClient:
             self._dissem_task.stop()
             self._dissem_task = None
         self._dq.put(None)
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
 
     def _on_control(self, msg: Message) -> bool:
         """A node can host several TsClients (intra + inter overlays):
@@ -297,9 +304,10 @@ class TsClient:
         t0 = time.monotonic()
         self.po.van.send(msg)
         with self._cv:
-            ok = self._cv.wait_for(lambda: ack_key in self._acks,
-                                   timeout=timeout)
-            if not ok:
+            ok = self._cv.wait_for(
+                lambda: ack_key in self._acks or self._stopped,
+                timeout=timeout)
+            if not ok or ack_key not in self._acks:
                 raise TimeoutError(f"{self.po.node}: TS relay to "
                                    f"{recipient} unacked")
             self._acks.discard(ack_key)
@@ -327,8 +335,10 @@ class TsClient:
             body={"iter": it, "last": last, "throughput": throughput},
         ))
         with self._cv:
-            ok = self._cv.wait_for(lambda: seq in self._replies, timeout=timeout)
-            if not ok:
+            ok = self._cv.wait_for(
+                lambda: seq in self._replies or self._stopped,
+                timeout=timeout)
+            if not ok or seq not in self._replies:
                 raise TimeoutError(f"{self.po.node}: TS ask_receiver timed out")
             r = self._replies.pop(seq)
         return NodeId.parse(r) if r else None

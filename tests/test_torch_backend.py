@@ -196,6 +196,41 @@ def test_device_optimizer_matches_numpy(spec):
     assert _state(dev.export_state()) == _state(opt_np)
 
 
+def test_device_adam_bitwise_with_numpy():
+    """The device Adam's square root is rounded to nearest on the host
+    too (torch's vectorised CPU sqrt is not): weights and moments equal
+    numpy's to the bit, as the JAX suite's contract asks (ROADMAP C16)."""
+    spec = {"type": "adam", "lr": 0.25, "beta1": 0.5, "beta2": 0.5,
+            "eps": 1.0}
+    rounds = _rounds(seed=3)
+    w0 = np.zeros(2048, np.float32)
+    w_np, opt_np = _numpy_trajectory(spec, rounds, w0, 0.25)
+    raw, dev = _device_trajectory(spec, rounds, w0, 0.25)
+    assert raw.host().tobytes() == w_np.tobytes()
+    assert _state(dev.export_state()) == _state(opt_np)
+
+
+def test_host_sqrt_rounds_to_nearest():
+    from geomx_tpu_torch.kvstore.torch_backend import _sqrt_rn_
+
+    x = np.random.default_rng(1).random(100_000).astype(np.float32) * 100
+    t = torch.from_numpy(x.copy())
+    assert _sqrt_rn_(t) is t
+    assert t.numpy().tobytes() == np.sqrt(x).tobytes()
+
+
+def test_backend_takes_the_device_its_config_names(monkeypatch):
+    monkeypatch.delenv("GEOMX_MERGE_BACKEND", raising=False)
+    be = TorchBackend(_cfg(merge_backend="torch:cpu"))
+    assert be.device == torch.device("cpu")
+    monkeypatch.setenv("GEOMX_MERGE_BACKEND", "torch:cpu")
+    assert TorchBackend(_cfg()).device == torch.device("cpu")
+    monkeypatch.setenv("GEOMX_MERGE_BACKEND", "torch")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchBackend(_cfg())
+
+
 def test_device_optimizer_f16_promotion_bitwise():
     spec = {"type": "sgd", "lr": 0.5, "momentum": 0.5}
     rounds = _rounds(dtype=np.float16)

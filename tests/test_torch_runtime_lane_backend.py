@@ -16,8 +16,20 @@ may need it, since the card's machine runs it without JAX.
 This file holds the runner and the lane's first group (the backend
 lane proper: kvstore, failover, eviction, sharded merge, recovery, the
 sharded global tier, the codecs and the adaptive WAN). The other groups
-are ``test_torch_runtime_lane_serve.py`` and
-``test_torch_runtime_lane_churn.py``; they import the runner from here.
+are ``test_torch_runtime_lane_serve.py``,
+``test_torch_runtime_lane_churn.py``, ``test_torch_runtime_lane_device.py``
+and ``test_torch_runtime_lane_host.py``; they import the runner from
+here.  The JAX package's device-backend contract suites (``CONTRACT``)
+go in by a rewrite of their own (``_contract_rewrite``): the JAX
+backend's module and class become the torch backend's and the backend
+asked for by name becomes the lane's.  On the host every launcher a test
+starts gets ``--device cpu`` (``_host_rewrite``).
+
+pytest runs in a session of its own, registered with
+``geomx_tpu_torch/utils/reaper.py``: on a timeout, and after pytest
+returns, its group (every process a test started) is killed, and what
+was still alive is reported (``LaneResult.leftovers``; a lane case fails
+on any).
 
 Cases the lane leaves out are named in ``LEFT_OUT`` with the reason
 and the port test that stands in for each. JAX-side timing tests that
@@ -35,10 +47,12 @@ beside the files and imported from there.
 One file by hand::
 
     python -m tests.test_torch_runtime_lane_backend kvstore [--backend torch:cpu]
+    python -m tests.test_torch_runtime_lane_backend merge_backend device_opt
     python -m tests.test_torch_runtime_lane_backend --slow
 """
 
 import argparse
+import ast
 import os
 import pathlib
 import re
@@ -51,6 +65,8 @@ from dataclasses import dataclass, field
 
 import pytest
 
+from geomx_tpu_torch.utils import reaper
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 # The lane's files, in the order it runs them (group 1, 2, 3).
@@ -61,12 +77,28 @@ GROUPS = {
     "serve": ("partition", "serve", "serve_plane", "obs", "flight",
               "integrity", "zero_copy", "trace", "stress"),
     "churn": ("churn", "dynamic_join", "robustness", "aux", "esync"),
+    # the device-backend contract suites (``CONTRACT``) and the
+    # schedulers over ``Simulation``: every merge on TorchBackend
+    "device": ("merge_backend", "device_opt", "device_codec",
+               "schedulers"),
+    # host suites: record-IO and the iterators, the native host codec
+    # library, one launcher process per role on its own loopback
+    # address, ``docs/metrics.md`` against the registered metrics
+    "host": ("data", "native", "multihost", "metrics_doc"),
 }
 FILES = tuple(f for g in GROUPS.values() for f in g)
+# The card runs every group but ``host`` (phase 11): the host suites
+# hold no device state (no merge backend, no tensor), so on the card they
+# would cost time and test nothing the host run does not.
+CARD_FILES = tuple(f for g, fs in GROUPS.items() if g != "host" for f in fs)
 # Files whose every case the JAX package marks ``slow``: the lane runs
 # them all the same (the written conftest marks their cases
 # ``lane_runs_slow``, which ``MARKER`` selects).
 ALL_SLOW = ("stress",)
+# single cases the JAX package marks ``slow`` that the lane runs too:
+# the multihost launch (5 processes, one per role, each on its own
+# loopback address; on the host each launcher gets ``--device cpu``)
+RUNS_SLOW = ("test_multihost.py::test_cluster_trains_across_distinct_addresses",)
 MARKER = "not slow or lane_runs_slow"
 
 # Node-id prefixes (in the rewritten tree) the lane deselects, each
@@ -102,6 +134,27 @@ LEFT_OUT = {
     "test_robustness.py::test_chaos_soak_drops_joins_leaves_compression":
         (_CNN + " (slow)", "tests/test_torch_runtime_training.py::"
                            "test_chaos_soak_drops_joins_leaves_compression"),
+    # the contract suites: where the port differs from JaxBackend by design
+    "test_merge_backend.py::test_auto_resolves_numpy_on_cpu_host":
+        ("the port's auto is the torch backend on CUDA and raises without "
+         "a card instead of merging on the host; JAX's auto is numpy on a "
+         "CPU host",
+         "tests/test_torch_backend.py::"
+         "test_auto_raises_without_cuda_instead_of_degrading"),
+    "test_device_opt.py::test_device_opt_selection_rules":
+        ("TorchBackend always runs its optimizer on its device: "
+         "merge_opt_device off (field or GEOMX_MERGE_OPT_DEVICE=0) raises "
+         "at construction, where JaxBackend's make_device_optimizer "
+         "returns None",
+         "tests/test_torch_backend.py::"
+         "test_device_stages_cannot_be_turned_off"),
+    "test_device_codec.py::test_codec_stage_selection_rules":
+        ("TorchBackend always runs its codec stage on its device: "
+         "codec_device off, GEOMX_CODEC_DEVICE=0 or deterministic raises "
+         "at construction, where JaxBackend's make_codec_stage returns "
+         "None",
+         "tests/test_torch_backend.py::"
+         "test_device_stages_cannot_be_turned_off"),
     "test_sharded_merge.py::test_sharded_merge_bit_identical_to_single_lock":
         ("reads the server's accumulator with ndarray.tobytes(); on the "
          "torch backend it is a tensor",
@@ -178,6 +231,87 @@ def _rewrite(text: str) -> str:
     return re.sub(r"geomx_tpu\b", "geomx_tpu_torch", text)
 
 
+# The device-backend contract suites: the JAX package's statement of
+# what a device merge backend must do, held against TorchBackend.
+CONTRACT = ("merge_backend", "device_opt", "device_codec")
+
+# ``lane_contract.py``, written beside them: what a JAX array does that
+# a torch tensor does not, and the 8 device slots of tests/conftest.py
+_CONTRACT_HELPERS = '''"""The contract rewrite's helpers (written by the backend lane)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from geomx_tpu_torch.kvstore import torch_backend
+
+DEVICE = torch.device(
+    "cpu" if os.environ.get("GEOMX_MERGE_BACKEND") == "torch:cpu" else "cuda")
+# the JAX suites run on 8 virtual CPU devices (tests/conftest.py): the
+# torch backend gets 8 single-controller slots on the lane's device
+MESH_SLOTS = 8
+
+
+def asarray(x, dtype=None):
+    """``jnp.asarray``: a tensor on the lane's device."""
+    return torch.as_tensor(np.asarray(x, dtype=dtype), device=DEVICE)
+
+
+def host_array(x, *args, **kwargs):
+    """``np.asarray``: numpy reads a JAX array back to the host by
+    itself; a torch tensor on the card refuses it, so the read is made
+    explicit."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, *args, **kwargs)
+
+
+@pytest.fixture(autouse=True)
+def _lane_mesh_slots(monkeypatch):
+    monkeypatch.setattr(torch_backend, "_MESH_DEVICES",
+                        [DEVICE] * MESH_SLOTS)
+'''
+
+_CONTRACT_IMPORT = ("from lane_contract import (_lane_mesh_slots,  # noqa: F401\n"
+                    "                           host_array)\n")
+
+
+def _contract_rewrite(text: str, backend: str) -> str:
+    """``_rewrite`` for a contract suite, onto ``backend`` (``torch:cpu``
+    or ``torch``): the JAX backend's module and class become the torch
+    backend's, the backend asked for by name (``"jax"`` in a Config, in
+    ``GEOMX_MERGE_BACKEND``, in a resolution) becomes ``backend``, the
+    name a backend reports (``.name``, ``stats()["merge_backend"]``)
+    becomes ``"torch"`` (on either device), ``jax.numpy`` and
+    ``np.asarray`` go through ``lane_contract``, and the JAX
+    accumulator's ``spread`` flag becomes a ``_DeviceAccum`` check."""
+    text = text.replace("geomx_tpu.kvstore.jax_backend",
+                        "geomx_tpu.kvstore.torch_backend")
+    text = re.sub(r"\bJaxBackend\b", "TorchBackend", text)
+    for reported in ('("numpy", "jax")', '["merge_backend"] == "jax"'):
+        text = text.replace(reported, reported.replace('"jax"', '"torch"'))
+    text = text.replace('"jax"', f'"{backend}"')
+    text = text.replace("import jax.numpy as jnp",
+                        "import lane_contract as jnp")
+    text = re.sub(r"\bnp\.asarray\(", "host_array(", text)
+    # the JAX accumulator's ``spread`` flag: a spread round is a
+    # ``_DeviceAccum`` here (a single-slot round is a bare tensor)
+    text = text.replace("assert acc.spread and",
+                        "assert isinstance(acc, jb._DeviceAccum) and")
+    first = re.search(r"^(import|from) ", text, re.M).start()
+    return _rewrite(text[:first] + _CONTRACT_IMPORT + text[first:])
+
+
+def _host_rewrite(text: str) -> str:
+    """On the host every launcher a test starts runs its role on the CPU
+    with the torch backend there (the scripts lane's rule)."""
+    return text.replace('"geomx_tpu_torch.launch",',
+                        '"geomx_tpu_torch.launch", "--device", "cpu",\n'
+                        '                 "--merge-backend", "torch:cpu",')
+
+
 _JAX_BLOCK = re.compile(
     r'^flags = os\.environ\.get\("XLA_FLAGS".*?'
     r'^jax\.config\.update\("jax_platforms", "cpu"\)\n', re.M | re.S)
@@ -196,12 +330,13 @@ class _NoJax:
 sys.meta_path.insert(0, _NoJax())
 
 _RUNS_SLOW = {RUNS_SLOW!r}
+_RUNS_SLOW_IDS = {RUNS_SLOW_IDS!r}
 
 
 def pytest_itemcollected(item):
-    # every case of these files is slow in the JAX package: the lane
-    # runs them all the same
-    if item.path.name in _RUNS_SLOW:
+    # every case of these files (and these cases) is slow in the JAX
+    # package: the lane runs them all the same
+    if item.path.name in _RUNS_SLOW or item.nodeid in _RUNS_SLOW_IDS:
         item.add_marker("lane_runs_slow")
 
 
@@ -211,6 +346,14 @@ def pytest_deselected(items):
     if path:
         with open(path, "a") as f:
             f.writelines(it.nodeid + "\\n" for it in items)
+
+
+def pytest_unconfigure(config):
+    # the codec kernels' launches in this process (the card's lane holds
+    # the contract suites to them)
+    q = sys.modules.get("geomx_tpu_torch.ops.kernels.quantize_cuda")
+    if q is not None:
+        print(f"kernel_launches={q.launches()}", flush=True)
 
 
 def _implicit_numpy(self, *args, **kwargs):
@@ -236,18 +379,26 @@ def lane_conftest() -> str:
     anchor = "\nimport pytest  # noqa: E402\n"
     assert anchor in text
     guard = _NO_JAX.replace(
-        "{RUNS_SLOW!r}", repr({f"test_{f}.py" for f in ALL_SLOW}))
+        "{RUNS_SLOW!r}", repr({f"test_{f}.py" for f in ALL_SLOW})).replace(
+        "{RUNS_SLOW_IDS!r}", repr(set(RUNS_SLOW)))
     return _rewrite(text).replace(anchor, guard + anchor, 1)
 
 
-def write_lane(dest: pathlib.Path, files=FILES, extra=()) -> pathlib.Path:
-    """Write the rewritten test files, the port's ``extra`` test files
-    (repository paths, copied as they are), the conftest and
-    ``pytest.ini`` into ``dest``."""
+def write_lane(dest: pathlib.Path, files=FILES, extra=(),
+               backend: str = "torch:cpu") -> pathlib.Path:
+    """Write the rewritten test files (the contract suites onto
+    ``backend``), the port's ``extra`` test files (repository paths,
+    copied as they are), the conftest and ``pytest.ini`` into ``dest``."""
     dest.mkdir(parents=True, exist_ok=True)
     for name in tuple(files) + tuple(h for h in HELPERS if h not in files):
         src = (ROOT / "tests" / f"test_{name}.py").read_text()
-        (dest / f"test_{name}.py").write_text(_rewrite(src))
+        text = (_contract_rewrite(src, backend) if name in CONTRACT
+                else _rewrite(src))
+        if backend == "torch:cpu":
+            text = _host_rewrite(text)
+        (dest / f"test_{name}.py").write_text(text)
+    if set(files) & set(CONTRACT):
+        (dest / "lane_contract.py").write_text(_CONTRACT_HELPERS)
     for rel in extra:
         (dest / pathlib.Path(rel).name).write_text((ROOT / rel).read_text())
     (dest / "conftest.py").write_text(lane_conftest())
@@ -265,6 +416,10 @@ class LaneResult:
     output: str
     cases: dict = field(default_factory=dict)   # node id -> outcome
     walls: dict = field(default_factory=dict)   # node id -> s (slow mode)
+    # processes of pytest's tree still alive when it ended, killed then
+    leftovers: list = field(default_factory=list)
+    # the codec kernels' launches in pytest's process, as it printed them
+    kernel_launches: dict = field(default_factory=dict)
 
     def per_file(self):
         """{file: {"passed": n, "failed": n, "skipped": n, "left_out": n}}"""
@@ -324,7 +479,7 @@ def run_lane(files=FILES, backend: str = "torch:cpu", *,
         tmp = tempfile.TemporaryDirectory(prefix="lane-")
         workdir = tmp.name
     workdir = pathlib.Path(workdir).resolve()   # pytest runs in the lane
-    lane = write_lane(workdir / "lane", files, extra)
+    lane = write_lane(workdir / "lane", files, extra, backend)
     junit = workdir / "lane.xml"
     deselect = () if only is not None else \
         tuple(LEFT_OUT) + TIMING + (() if heavy else HEAVY) + tuple(leave_out)
@@ -342,14 +497,20 @@ def run_lane(files=FILES, backend: str = "torch:cpu", *,
     env = _env(backend, dict(extra_env or {},
                              GEOMX_LANE_DESELECTED=str(desel)))
     t0 = time.monotonic()
+    # pytest in a session of its own: its group, with every process a
+    # test started in it, is killed on a timeout and after pytest returns
+    proc = reaper.popen(args, what=f"lane pytest {' '.join(targets)}",
+                        cwd=str(lane), stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True, env=env)
     try:
-        out = subprocess.run(args, cwd=str(lane), capture_output=True,
-                             text=True, env=env, timeout=timeout)
-        rc, text = out.returncode, out.stdout + out.stderr
-    except subprocess.TimeoutExpired as e:
-        rc = 124
-        text = ((e.stdout or b"").decode(errors="replace")
-                if isinstance(e.stdout, bytes) else (e.stdout or ""))
+        text, _ = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+        leftovers = reaper.release(proc.pid)
+    except subprocess.TimeoutExpired:
+        # pytest itself may have ended, a process it left holding its pipe
+        rc = 124 if proc.poll() is None else proc.returncode
+        leftovers = reaper.release(proc.pid)
+        text, _ = proc.communicate()
     wall = time.monotonic() - t0
     cases = _junit_cases(junit) if junit.exists() else {}
     if deselect and desel.exists():
@@ -358,7 +519,11 @@ def run_lane(files=FILES, backend: str = "torch:cpu", *,
                 cases[nid] = "left_out"
     if tmp is not None:
         tmp.cleanup()
-    return LaneResult(rc, wall, text, cases)
+    res = LaneResult(rc, wall, text, cases, leftovers=leftovers)
+    printed = re.findall(r"^kernel_launches=(\{.*\})$", text, re.M)
+    if printed:
+        res.kernel_launches = ast.literal_eval(printed[-1])
+    return res
 
 
 def run_slow_cases(backend: str = "torch:cpu", *, workdir=None,
@@ -378,6 +543,7 @@ def run_slow_cases(backend: str = "torch:cpu", *, workdir=None,
         out.cases.update(res.cases)
         out.cases.setdefault(nid, "failed")   # no JUnit entry: it never ran
         out.walls[nid] = res.wall_s
+        out.leftovers += res.leftovers
     return out
 
 
@@ -390,6 +556,7 @@ def check_file(name: str, tmp_path) -> None:
         f"rc {res.rc}, failed {res.failed()}, counts {row}\n"
         + res.output[-6000:])
     assert row.get("skipped", 0) == 0, res.output[-3000:]
+    assert not res.leftovers, f"processes outlived pytest: {res.leftovers}"
 
 
 @pytest.mark.parametrize("name", GROUPS["backend"])
@@ -423,8 +590,8 @@ def test_slow_lists_cover_every_slow_case():
     """Every ``slow`` case of the slow mode's files is in exactly one of
     its lists: run (``SLOW_CASES``), JAX-side timing (``SLOW_TIMING``),
     covered by an acceptance case (``SLOW_COVERED``), trained on the JAX
-    CNN (``LEFT_OUT``), or of a file the lane runs whole
-    (``ALL_SLOW``)."""
+    CNN (``LEFT_OUT``), run in the lane itself (``RUNS_SLOW``), or of a
+    file the lane runs whole (``ALL_SLOW``)."""
     found = set()
     for f in SLOW_FILES:
         if f in ALL_SLOW:
@@ -434,7 +601,7 @@ def test_slow_lists_cover_every_slow_case():
                              src):
             found.add(f"test_{f}.py::{m.group(1)}")
     lists = [set(SLOW_CASES), set(SLOW_TIMING), set(SLOW_COVERED),
-             set(LEFT_OUT) & found]
+             set(LEFT_OUT) & found, set(RUNS_SLOW)]
     assert sum(len(x) for x in lists) == len(set().union(*lists))
     assert set().union(*lists) == found, found ^ set().union(*lists)
 
@@ -445,7 +612,7 @@ def test_lane_lists_are_whole():
     from geomx_tpu_torch import acceptance
 
     for nid in tuple(LEFT_OUT) + TIMING + HEAVY + tuple(SLOW_COVERED) + \
-            SLOW_CASES + SLOW_TIMING:
+            SLOW_CASES + SLOW_TIMING + RUNS_SLOW:
         fname, test = nid.split("::")
         assert fname[len("test_"):-len(".py")] in SLOW_FILES, nid
         text = (ROOT / "tests" / fname).read_text()
@@ -464,6 +631,16 @@ def test_lane_lists_are_whole():
         text = (ROOT / path).read_text()
         assert re.search(rf"^def {re.escape(test.split('[')[0])}\(",
                          text, re.M), counterpart
+    # every group's file is a JAX test file; the contract suites are in
+    # a group the card runs, the host group in none
+    for f in FILES:
+        assert (ROOT / "tests" / f"test_{f}.py").exists(), f
+    assert set(CONTRACT) <= set(CARD_FILES)
+    assert not set(GROUPS["host"]) & set(CARD_FILES)
+    # the contract suites differ from the port by design in named cases
+    # only, each with its stand-in (the lines above)
+    assert {n.split("::")[0] for n in LEFT_OUT} >= {
+        f"test_{f}.py" for f in CONTRACT}
 
 
 def test_lane_conftest_imports_no_jax(tmp_path):

@@ -56,6 +56,8 @@ from dataclasses import dataclass, field
 
 import pytest
 
+from geomx_tpu_torch.utils import reaper
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ROOT / "scripts"
 
@@ -377,10 +379,9 @@ def run_script(script: str, device: str = "cpu", *, workdir=None,
     base = base_port or free_base_port(PORT_SPAN)
     env = script_env(device, base, tmp, extra_env)
     t0 = time.monotonic()
-    proc = subprocess.Popen(["bash", str(sdir / script)], cwd=str(tree),
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    proc = reaper.popen(["bash", str(sdir / script)], what=f"script {script}",
+                        cwd=str(tree), env=env, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True)
     timeline = []           # (seconds, source, line): when it was seen
     lines = []
 
@@ -403,12 +404,12 @@ def run_script(script: str, device: str = "cpu", *, workdir=None,
                 proc.wait()
                 rc = 124
         _poll_logs(tmp, seen, timeline, time.monotonic() - t0)
-    # what the script left running (its traps kill their children)
-    try:
-        os.killpg(proc.pid, signal.SIGKILL)
-    except ProcessLookupError:
-        pass
+    # what the script left running (its traps kill their children, and
+    # may not wait for them), its group and what had left it
+    killed = reaper.release(proc.pid)
     reader.join(10)
+    if killed:
+        lines.append(f"[runner] killed after the script ended: {killed}\n")
     output = "".join(lines)
     wall = time.monotonic() - t0
     res = ScriptResult(script, device, rc, wall, output)
@@ -522,7 +523,7 @@ def test_chip_smoke_phase_12_names_runnable_scripts():
     spec.loader.exec_module(smoke)
     assert set(smoke.SCRIPTS_QUIET) <= set(RUNNABLE)
     quiet = [n for seq in smoke.QUIET_STREAMS for n in seq] + list(
-        smoke.QUIET_ALONE)
+        smoke.QUIET_BESIDE_LANE)
     assert sorted(quiet) == sorted(set(quiet)) == sorted(smoke.SCRIPTS_QUIET)
     assert set(smoke.SCRIPT_WALL_HINT_S) <= set(RUNNABLE)
     assert smoke.SCRIPT_STREAMS >= 1
