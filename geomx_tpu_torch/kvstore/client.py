@@ -317,6 +317,12 @@ class WorkerKVStore:
         return self._tracer.round(round_idx,
                                   self.config.trace_sample_every)
 
+    def span(self, name: str):
+        """A span of this worker's on its node's tracer
+        (:mod:`geomx_tpu_torch.trace.recorder`): how the training loops
+        time the model step and the copies to and from the host."""
+        return self._tracer.span(name)
+
     # ---- public API ---------------------------------------------------------
     def init(self, tid: int, value: np.ndarray, barrier: bool = False,
              overwrite: bool = False):

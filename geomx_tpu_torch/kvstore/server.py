@@ -47,6 +47,7 @@ from geomx_tpu_torch.optim import DCASGD, ServerOptimizer, Sgd, make_optimizer
 from geomx_tpu_torch.ps import KVPairs, KVServer, KVWorker, Postoffice
 from geomx_tpu_torch.ps.postoffice import split_range
 from geomx_tpu_torch.trace import context as _tctx
+from geomx_tpu_torch.trace.recorder import _NULL_SPAN
 from geomx_tpu_torch.transport.message import Control, Domain, Message
 
 
@@ -70,6 +71,12 @@ def _ctx_bound(fn):
             _tctx.restore(prev)
 
     return bound
+
+
+def _lane_span(tracer, lanes, name: str):
+    """The span of one piece of merge-lane work: its own on a lane
+    thread; none where ``lanes`` run inline, inside the handler's span."""
+    return _NULL_SPAN if lanes.inline else tracer.span(name)
 
 
 def _handle_profiler_cmd(po: Postoffice, msg: Message, server: KVServer):
@@ -541,15 +548,12 @@ class LocalServer:
             # routed here because the KVServer owns the PS app id
             self.ts_push_inter._on_merge_msg(msg)
         elif msg.push:
-            # the tracer span nests inside the profiler span: same
-            # buffer, but the tracer one carries the causal ids and is
-            # gated on the round's sampling, not on profiler.running
-            with prof.span("local.push"), self._tr.span("local.push"):
+            with self._tr.handler_span("local.push"):
                 self._handle_push(msg, kvs)
             if prof.running:
                 prof.count("push_bytes", float(msg.nbytes))
         elif msg.pull:
-            with prof.span("local.pull"), self._tr.span("local.pull"):
+            with self._tr.handler_span("local.pull"):
                 self._handle_pull(msg, kvs)
 
     def _handle_init(self, msg: Message, kvs: KVPairs):
@@ -1501,35 +1505,36 @@ class LocalServer:
         done_mu = threading.Lock()
 
         def merge_one(k: int, v: np.ndarray):
-            bundle = None
-            with self._mu.stripe(k):
-                st = self._keys.setdefault(k, _KeyState())
-                st.contributors.add(sender_s)
-                if hfa_n:
-                    st.hfa_inv += num_merge / hfa_n
-                if st.accum is None:
-                    st.accum = self._backend.seed(v, msg.donated, key=k)
-                    # fold joins in at the round boundary
-                    st.expected = self._workers_target
-                else:
-                    st.accum = self._backend.accumulate(st.accum, v)
-                st.count += num_merge
-                st.priority = msg.priority
-                if (self.sync_mode
-                        and st.count >= (st.expected or self.num_workers)
-                        and not st.completing):
-                    # take-at-decide, still under the stripe: detaching
-                    # the accumulator AT the decision point closes the
-                    # decide→retake window a parallel lane could
-                    # otherwise merge the next round's gradient into
-                    bundle = self._take_completed_locked(k)
-            with done_mu:
-                if bundle is not None:
-                    bundles.append(bundle)
-                pending[0] -= 1
-                last = pending[0] == 0
-            if last:
-                self._push_merged(msg, kvs, bundles)
+            with _lane_span(self._tr, self._shards, "local.merge"):
+                bundle = None
+                with self._mu.stripe(k):
+                    st = self._keys.setdefault(k, _KeyState())
+                    st.contributors.add(sender_s)
+                    if hfa_n:
+                        st.hfa_inv += num_merge / hfa_n
+                    if st.accum is None:
+                        st.accum = self._backend.seed(v, msg.donated, key=k)
+                        # fold joins in at the round boundary
+                        st.expected = self._workers_target
+                    else:
+                        st.accum = self._backend.accumulate(st.accum, v)
+                    st.count += num_merge
+                    st.priority = msg.priority
+                    if (self.sync_mode
+                            and st.count >= (st.expected or self.num_workers)
+                            and not st.completing):
+                        # take-at-decide, still under the stripe: detaching
+                        # the accumulator AT the decision point closes the
+                        # decide→retake window a parallel lane could
+                        # otherwise merge the next round's gradient into
+                        bundle = self._take_completed_locked(k)
+                with done_mu:
+                    if bundle is not None:
+                        bundles.append(bundle)
+                    pending[0] -= 1
+                    last = pending[0] == 0
+                if last:
+                    self._push_merged(msg, kvs, bundles)
 
         for k, v in slices:
             self._shards.submit(k, _ctx_bound(lambda k=k, v=v: merge_one(k, v)))
@@ -1655,46 +1660,48 @@ class LocalServer:
         # key, so row-sparse and dense pushes of one key keep their
         # arrival order under sharding
         def merge_rs():
-            if not self.sync_mode:
-                # async: no accumulation round — densify once and forward
-                with self._mu:
+            with _lane_span(self._tr, self._shards, "local.merge"):
+                if not self.sync_mode:
+                    # async: no accumulation round — densify once and forward
+                    with self._mu:
+                        st = self._keys.setdefault(key, _KeyState())
+                        st.in_flight = 0
+                        dense = np.zeros_like(self.store[key],
+                                              dtype=np.float32)
+                        np.add.at(dense.reshape(-1, cols), row_ids, rows)
+                        self._drain_parked_locked(st)
+                    err = getattr(msg, "_gx_poisoned", None)
+                    self._recent.mark_done(msg, err)
+                    self.server.response(msg, body=err)
+                    if err is None:
+                        self._push_up(KVPairs(
+                            kvs.keys, dense,
+                            np.array([len(dense)], np.int64)),
+                            rs_keys={key})
+                    return
+                bundle = None
+                with self._mu.stripe(key):
                     st = self._keys.setdefault(key, _KeyState())
-                    st.in_flight = 0
-                    dense = np.zeros_like(self.store[key], dtype=np.float32)
-                    np.add.at(dense.reshape(-1, cols), row_ids, rows)
-                    self._drain_parked_locked(st)
+                    st.contributors.add(sender_s)
+                    if st.accum is None:
+                        st.accum = np.zeros_like(self.store[key],
+                                                 dtype=np.float32)
+                        st.expected = self._workers_target
+                    else:
+                        # a dense push may have seeded this key on a device
+                        # backend; the scatter-add is host-side by design
+                        st.accum = self._backend.materialize(st.accum)
+                    np.add.at(st.accum.reshape(-1, cols), row_ids, rows)
+                    st.count += 1
+                    st.row_sparse = True
+                    if (st.count >= (st.expected or self.num_workers)
+                            and not st.completing):
+                        bundle = self._take_completed_locked(key)
                 err = getattr(msg, "_gx_poisoned", None)
                 self._recent.mark_done(msg, err)
                 self.server.response(msg, body=err)
-                if err is None:
-                    self._push_up(KVPairs(
-                        kvs.keys, dense,
-                        np.array([len(dense)], np.int64)),
-                        rs_keys={key})
-                return
-            bundle = None
-            with self._mu.stripe(key):
-                st = self._keys.setdefault(key, _KeyState())
-                st.contributors.add(sender_s)
-                if st.accum is None:
-                    st.accum = np.zeros_like(self.store[key],
-                                             dtype=np.float32)
-                    st.expected = self._workers_target
-                else:
-                    # a dense push may have seeded this key on a device
-                    # backend; the scatter-add is host-side by design
-                    st.accum = self._backend.materialize(st.accum)
-                np.add.at(st.accum.reshape(-1, cols), row_ids, rows)
-                st.count += 1
-                st.row_sparse = True
-                if (st.count >= (st.expected or self.num_workers)
-                        and not st.completing):
-                    bundle = self._take_completed_locked(key)
-            err = getattr(msg, "_gx_poisoned", None)
-            self._recent.mark_done(msg, err)
-            self.server.response(msg, body=err)
-            if bundle is not None:
-                self._dispatch_rounds([bundle])
+                if bundle is not None:
+                    self._dispatch_rounds([bundle])
 
         self._shards.submit(key, _ctx_bound(merge_rs))
 
@@ -3117,7 +3124,7 @@ class GlobalServer:
             prof.count("push_bytes", float(msg.nbytes))
         span_name = ("global.init" if msg.cmd == Cmd.INIT
                      else "global.push" if msg.push else "global.pull")
-        with prof.span(span_name), self._tr.span(span_name):
+        with self._tr.handler_span(span_name):
             self._handle_inner(msg, kvs, server)
 
     def _handle_inner(self, msg: Message, kvs: Optional[KVPairs],
@@ -3447,45 +3454,46 @@ class GlobalServer:
         gate = num_merge == 1 and not hfa_delta
 
         def merge_one(k: int, v: np.ndarray):
-            k_acks: List[tuple] = []
-            k_reparks: List[Message] = []
-            completed = False
-            opened = False
-            with self._mu.stripe(k):
-                st = self._keys.setdefault(k, _GlobalKeyState())
-                if (gate and st.accum is not None
-                        and sender_s in st.contributors):
-                    st.deferred.append((sender_s, v, entry, msg.donated))
-                else:
-                    if st.accum is None:
-                        st.accum = self._backend.seed(v, msg.donated,
-                                                      key=k)
-                        opened = True
+            with _lane_span(self._tr, self._shards, "global.merge"):
+                k_acks: List[tuple] = []
+                k_reparks: List[Message] = []
+                completed = False
+                opened = False
+                with self._mu.stripe(k):
+                    st = self._keys.setdefault(k, _GlobalKeyState())
+                    if (gate and st.accum is not None
+                            and sender_s in st.contributors):
+                        st.deferred.append((sender_s, v, entry, msg.donated))
                     else:
-                        st.accum = self._backend.accumulate(st.accum, v)
-                    st.count += num_merge
-                    st.parked_pushes.append(entry)
-                    if gate:
-                        st.contributors.add(sender_s)
-                    if st.count >= self.num_contributors:
-                        completed = True
-                        self._complete_key_locked(k, hfa_delta, k_acks,
-                                                  k_reparks)
-            if opened and self._flight is not None:
-                # a fresh aggregation round opened for this key — the
-                # stall forensic's "who was the round waiting on"
-                self._flight.record(FlightEv.ROUND_OPEN, a=k,
-                                    peer=msg.sender, note="global")
-            with done_mu:
-                acks.extend(k_acks)
-                reparks.extend(k_reparks)
-                if completed:
-                    completed_keys.append(k)
-                pending[0] -= 1
-                last = pending[0] == 0
-            if last:
-                self._merge_finish(acks, reparks, completed_keys,
-                                   dissem_ok)
+                        if st.accum is None:
+                            st.accum = self._backend.seed(v, msg.donated,
+                                                          key=k)
+                            opened = True
+                        else:
+                            st.accum = self._backend.accumulate(st.accum, v)
+                        st.count += num_merge
+                        st.parked_pushes.append(entry)
+                        if gate:
+                            st.contributors.add(sender_s)
+                        if st.count >= self.num_contributors:
+                            completed = True
+                            self._complete_key_locked(k, hfa_delta, k_acks,
+                                                      k_reparks)
+                if opened and self._flight is not None:
+                    # a fresh aggregation round opened for this key — the
+                    # stall forensic's "who was the round waiting on"
+                    self._flight.record(FlightEv.ROUND_OPEN, a=k,
+                                        peer=msg.sender, note="global")
+                with done_mu:
+                    acks.extend(k_acks)
+                    reparks.extend(k_reparks)
+                    if completed:
+                        completed_keys.append(k)
+                    pending[0] -= 1
+                    last = pending[0] == 0
+                if last:
+                    self._merge_finish(acks, reparks, completed_keys,
+                                       dissem_ok)
 
         for k, v in slices:
             self._shards.submit(k, _ctx_bound(lambda k=k, v=v: merge_one(k, v)))
@@ -3876,6 +3884,16 @@ class GlobalServer:
         return blocked
 
     def _respond_pull(self, req: Message):
+        """Build and send one pull response, in a ``global.pull_serve``
+        span that carries the response's ``key`` and payload ``bytes``."""
+        with self._tr.span("global.pull_serve") as sp:
+            n = self._respond_pull_inner(req)
+            if sp.recording:
+                keys = [int(k) for k in req.keys]
+                sp.args["key"] = keys[0] if len(keys) == 1 else keys
+                sp.args["bytes"] = n
+
+    def _respond_pull_inner(self, req: Message) -> int:
         # HFA K2 pulls must come back dense: the subscriber's replica just
         # adopted its party mean, so sparse deltas against the tracked
         # view would desync it.  A warm-boot pull (body {"dense": True})
@@ -3886,17 +3904,18 @@ class GlobalServer:
                              and bool(req.body.get("dense")))
         if not dense and (self.pull_comp is not None
                           or self.compression.get("type") == "fp16"):
-            self._respond_pull_compressed(req)
-            return
+            return self._respond_pull_compressed(req)
         ks, vs, ls, wvs = [], [], [], {}
         for k in req.keys:
             k = int(k)
             w, wvs[str(k)] = self._weight_wv(k)
             ks.append(k); vs.append(w); ls.append(len(w))
+        payload = _store_payload(vs)
         self.server.response(req, KVPairs(
-            np.array(ks, dtype=np.int64), _store_payload(vs),
+            np.array(ks, dtype=np.int64), payload,
             np.array(ls, dtype=np.int64)),
             body={"wv": wvs})
+        return int(payload.nbytes)
 
     def _weight_wv(self, k: int):
         """Coherent ``(weights, weight-version)`` snapshot for a
@@ -3912,7 +3931,7 @@ class GlobalServer:
             return self.store[k], ((self.term << 48)
                                    + (st.ver if st is not None else 0))
 
-    def _respond_pull_compressed(self, req: Message):
+    def _respond_pull_compressed(self, req: Message) -> int:
         """Pull-direction compression (the second half of Bi-Sparse,
         ref: BSCPullCompress/DefaultStorageResponse :1171-1211).
 
@@ -3931,10 +3950,10 @@ class GlobalServer:
         # under a stripe or the barrier, never the reverse) keeps them
         # coherent now that pull serving runs outside the big lock
         with self._tr.span("codec.encode"), self._pc_mu:
-            self._respond_pull_compressed_inner(req, typ, size_bound)
+            return self._respond_pull_compressed_inner(req, typ, size_bound)
 
     def _respond_pull_compressed_inner(self, req: Message, typ,
-                                       size_bound: int):
+                                       size_bound: int) -> int:
         sender = str(req.sender)
         echo = {}
         if isinstance(req.body, dict):
@@ -3962,6 +3981,7 @@ class GlobalServer:
                     np.array(ls, dtype=np.int64)),
             body={"compr": tags, "pv": pvs, "wv": wvs},
         )
+        return sum(ls)
 
     def _on_set_wan_policy(self, msg: Message, body: dict):
         """Ctrl.SET_WAN_POLICY from the controller (receiver side):

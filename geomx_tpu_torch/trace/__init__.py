@@ -10,7 +10,10 @@ and distills a per-round critical-path report.
 Off by default (``Config.trace_sample_every = 0``): every hot-path hook
 gates on one module flag and the span factory returns a shared no-op, so
 the disabled path adds no per-message work.  Sampling every N-th round
-bounds the overhead when it is on.
+bounds the overhead when it is on.  While ``torch.profiler`` records,
+spans record too, traceless outside a sampled round, stamped on the
+profiler's host clock: :func:`recorded_spans` returns them, to be laid
+beside the device's events of the profiler's trace.
 
 See docs/tracing.md for usage.
 """
@@ -18,7 +21,7 @@ See docs/tracing.md for usage.
 from geomx_tpu_torch.trace import context
 from geomx_tpu_torch.trace.context import (TraceContext, activate, new_span_id,
                                      trace_id_for_round)
-from geomx_tpu_torch.trace.recorder import Tracer, get_tracer
+from geomx_tpu_torch.trace.recorder import Tracer, get_tracer, recorded_spans
 
 
 def get_collector(postoffice):
@@ -84,4 +87,4 @@ class PhaseTracer:
 
 __all__ = ["TraceContext", "Tracer", "PhaseTracer", "activate",
            "context", "get_collector", "get_tracer", "new_span_id",
-           "trace_id_for_round"]
+           "recorded_spans", "trace_id_for_round"]

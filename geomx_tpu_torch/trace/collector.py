@@ -33,11 +33,13 @@ _STAGES = (
     ("worker.push", "lan_push"),
     ("local.push", "local_merge"),
     ("local.init", "local_merge"),
+    ("local.merge", "local_merge"),
     ("codec.", "codec"),
     ("wan.", "wan"),
     ("global.push", "global_merge"),
     ("global.opt", "global_merge"),
     ("global.init", "global_merge"),
+    ("global.merge", "global_merge"),
     ("global.pull", "pull_fanout"),
     ("local.pull", "pull_fanout"),
     ("worker.pull", "pull_fanout"),

@@ -9,18 +9,35 @@ event dict sits in the tracer's pending batch until it is shipped to the
 scheduler-side collector (``Ctrl.TRACE_REPORT``) — the dicts are shared,
 never copied.
 
+Spans record in two cases: inside a sampled round (``ACTIVE`` and a
+thread context, the causal trace), and, traceless where no sampled
+context is open, whenever ``torch.profiler`` records — so a profiled
+run gets the program's spans beside the device's events with no knob
+of its own.
+
 Timestamps: events carry the profiler-relative ``ts`` (so a per-node
 ``Profiler.dump`` stays coherent) plus an absolute ``t_mono_us`` in
 ``args`` — the collector merges on the monotonic clock, corrected by the
-per-node offset estimated from heartbeat RTTs.
+per-node offset estimated from heartbeat RTTs.  A span's ``args`` also
+hold ``unix_ns``, its start and end in Unix nanoseconds
+(``time.time_ns``, the clock ``torch.profiler`` stamps host events on:
+a Chrome trace's ``ts`` is microseconds after its
+``baseTimeNanoseconds``), and the two ids such a trace gives its
+thread: ``native_tid`` (the OS id: the ``tid`` of the thread's events
+where the profiler registered the thread, as it does the one that
+started it) and ``profiler_tid`` (from its pthread id: the ``tid`` of
+the CUDA runtime events of a thread it did not register, such as a
+worker's).
+:func:`recorded_spans` returns them.
 
 Overhead: ``span()`` / ``round()`` return the shared ``_NULL_SPAN``
-whenever tracing is inactive or the current thread carries no sampled
-context — no allocation, no branch beyond the gate, nothing stamped.
+whenever neither case holds — two flag reads, no allocation, nothing
+stamped.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -29,11 +46,21 @@ from geomx_tpu_torch.trace import context as _ctx
 from geomx_tpu_torch.utils.profiler import Profiler, get_profiler
 
 
+def torch_profiling() -> bool:
+    """True while ``torch.profiler`` (or the autograd profiler) records,
+    on any thread: torch keeps one process-wide flag for it.  Never
+    imports torch — a process that has not loaded it is not profiling."""
+    m = sys.modules.get("torch.autograd.profiler")
+    return m is not None and m._is_profiler_enabled
+
+
 class _NullSpan:
     """Shared no-op span: the entire cost of an instrumented site when
-    tracing is off (``tracer.span(...) is _NULL_SPAN``)."""
+    tracing is off (``tracer.span(...) is _NULL_SPAN``).  ``recording``
+    is False, so a site computes a span's ``args`` only when it records."""
 
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -46,8 +73,15 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
+    """A recording span.  ``args`` (a dict) rides into the event's
+    ``args``: a site adds its counts (``bytes``, ``key``) there.  A
+    traceless span (``trace_id`` 0: recorded because the torch profiler
+    runs) leaves the thread's context alone, so nothing it encloses
+    joins or starts a trace."""
+
     __slots__ = ("_tr", "name", "cat", "_enter_ctx", "_prev", "span_id",
-                 "parent", "trace_id", "_t0", "_t0_mono")
+                 "parent", "trace_id", "_t0", "_t0_mono", "_t0_ns", "args")
+    recording = True
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  trace_id: int, parent: int):
@@ -57,19 +91,36 @@ class _Span:
         self.trace_id = trace_id
         self.parent = parent
         self.span_id = _ctx.new_span_id()
+        self.args: dict = {}
 
     def __enter__(self):
-        self._prev = _ctx.swap(_ctx.TraceContext(self.trace_id, self.span_id))
-        self._t0 = time.perf_counter()
+        if self.trace_id:
+            self._prev = _ctx.swap(_ctx.TraceContext(self.trace_id,
+                                                     self.span_id))
         self._t0_mono = time.monotonic()
+        self._t0 = time.perf_counter()
+        self._t0_ns = time.time_ns()
         return self
 
     def __exit__(self, *exc):
+        t1_ns = time.time_ns()
         dur_us = (time.perf_counter() - self._t0) * 1e6
-        _ctx.restore(self._prev)
+        if self.trace_id:
+            _ctx.restore(self._prev)
         self._tr._record(self.name, self.cat, dur_us, self.trace_id,
-                         self.span_id, self.parent, self._t0_mono)
+                         self.span_id, self.parent, self._t0_mono,
+                         unix_ns=(self._t0_ns, t1_ns),
+                         native_tid=threading.get_native_id(),
+                         profiler_tid=_profiler_tid(), **self.args)
         return False
+
+
+def _profiler_tid() -> int:
+    """The id ``torch.profiler``'s trace gives the CUDA runtime events of
+    a thread it has not registered: the low 32 bits of the thread's
+    pthread id read as a signed int, without its sign."""
+    i = threading.get_ident() & 0xFFFFFFFF
+    return (1 << 32) - i if i >= 1 << 31 else i
 
 
 class Tracer:
@@ -88,14 +139,23 @@ class Tracer:
 
     # ---- recording ----------------------------------------------------------
     def span(self, name: str, cat: str = "trace"):
-        """Timed child span of the thread's current context (no-op when
-        tracing is off or the context is unsampled)."""
-        if not _ctx.ACTIVE:
-            return _NULL_SPAN
-        cur = _ctx.current()
-        if cur is None:
-            return _NULL_SPAN
-        return _Span(self, name, cat, cur.trace_id, cur.span_id)
+        """Timed child span of the thread's current context; traceless
+        where there is none and the torch profiler records; else the
+        shared no-op."""
+        if _ctx.ACTIVE:
+            cur = _ctx.current()
+            if cur is not None:
+                return _Span(self, name, cat, cur.trace_id, cur.span_id)
+        if torch_profiling():
+            return _Span(self, name, cat, 0, 0)
+        return _NULL_SPAN
+
+    def handler_span(self, name: str):
+        """A request handler's span: this tracer's when it records, else
+        the node profiler's own (a no-op unless that runs).  Both write
+        into one buffer, so a handler is recorded once, never twice."""
+        sp = self.span(name)
+        return sp if sp.recording else self.profiler.span(name)
 
     def round(self, round_idx: int, sample_every: int):
         """Root span of one sampled round: every node derives the same
@@ -199,6 +259,30 @@ class Tracer:
 
 _tracers: Dict[str, Tracer] = {}
 _mu = threading.Lock()
+
+
+def recorded_spans() -> List[dict]:
+    """Every node's recorded spans, from the node profilers' buffers:
+    ``node``, ``thread`` (its name), ``native_tid`` and ``profiler_tid``
+    (the ids a torch profiler trace may give the thread), ``name``,
+    ``t0_ns`` and ``t1_ns`` (Unix nanoseconds, the torch profiler's host
+    clock) and ``args`` (the span's counts and causal ids).  Instants
+    and the profiler's own spans carry no such stamps and are left out."""
+    with _mu:
+        tracers = list(_tracers.values())
+    out = []
+    for tr in tracers:
+        for ev in tr.profiler.events():
+            a = ev.get("args")
+            if not a or "unix_ns" not in a:
+                continue
+            t0, t1 = a["unix_ns"]
+            out.append({"node": tr.node, "thread": ev["tid"],
+                        "native_tid": a["native_tid"],
+                        "profiler_tid": a["profiler_tid"],
+                        "name": ev["name"], "t0_ns": t0, "t1_ns": t1,
+                        "args": dict(a)})
+    return out
 
 
 def get_tracer(node: str) -> Tracer:

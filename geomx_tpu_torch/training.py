@@ -97,6 +97,29 @@ def unflatten_params(treedef, arrs: List[np.ndarray]
         for n, a in zip(names, arrs))
 
 
+def _close_on_device(tensors) -> None:
+    """Wait for the work queued so far on the current stream of the
+    tensors' CUDA device (an event after its last kernel), without
+    synchronising the whole device; nothing on the CPU."""
+    t = next(iter(tensors))
+    if t.device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        ev.synchronize()
+
+
+def _to_device(kv, treedef, arrs):
+    """:func:`unflatten_params` in a ``worker.h2d`` span that carries
+    the bytes copied and, while it records, closes on the device."""
+    with kv.span("worker.h2d") as sp:
+        params = unflatten_params(treedef, arrs)
+        if sp.recording:
+            sp.args["bytes"] = sum(t.numel() * t.element_size()
+                                   for t in params.values())
+            _close_on_device(params.values())
+    return params
+
+
 def run_worker(
     kv: WorkerKVStore,
     params: Dict[str, torch.Tensor],
@@ -138,11 +161,17 @@ def run_worker(
         m.step_start()
         with kv.trace_round(step):
             with m.phase("grad"), step_order(kv):
-                loss, acc, grads = grad_fn(params, x, y)
+                with kv.span("worker.grad") as sp:
+                    loss, acc, grads = grad_fn(params, x, y)
+                    if sp.recording:
+                        _close_on_device(grads.values())
                 # one D2H per leaf, which also waits for the backward
                 # pass, so the phase split is honest
-                g_leaves = [grads[n].detach().float().cpu().numpy()
-                            for n in names]
+                with kv.span("worker.d2h") as sp:
+                    g_leaves = [grads[n].detach().float().cpu().numpy()
+                                for n in names]
+                    if sp.recording:
+                        sp.args["bytes"] = sum(g.nbytes for g in g_leaves)
             with m.phase("push"):
                 if kv.ts_push is not None:
                     # TS push direction: worker-to-worker merge tree
@@ -167,7 +196,7 @@ def run_worker(
                                 priority=-tid)
             with m.phase("pull_wait"):
                 kv.wait_all()
-        params = unflatten_params(treedef, buf)  # type: ignore[arg-type]
+            params = _to_device(kv, treedef, buf)
         m.step_end()
         history.append((float(loss), float(acc)))
         if log_fn is not None:
@@ -213,13 +242,18 @@ def run_worker_hfa(
         if step >= steps or _preempt_noticed(kv):
             break
         m.step_start()
-        with m.phase("grad"), step_order(kv):
-            loss, acc, grads = grad_fn(params, x, y)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = local.apply_updates(params, updates)
-        if (step + 1) % k1 == 0:
-            params, _ = _hfa_sync_round(kv, params, treedef, len(leaves),
-                                        buf, m)
+        with kv.trace_round(step):
+            with m.phase("grad"), step_order(kv), \
+                    kv.span("worker.grad") as sp:
+                loss, acc, grads = grad_fn(params, x, y)
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                params = local.apply_updates(params, updates)
+                if sp.recording:
+                    _close_on_device(params.values())
+            if (step + 1) % k1 == 0:
+                params, _ = _hfa_sync_round(kv, params, treedef,
+                                            len(leaves), buf, m)
         m.step_end()
         history.append((float(loss), float(acc)))
         if log_fn is not None:
@@ -239,7 +273,10 @@ def _hfa_sync_round(kv, params, treedef, n_leaves, buf, m,
     barrier after them is the straggler wait ESync exists to remove."""
     import time
 
-    w_leaves, _ = flatten_params(params)
+    with kv.span("worker.d2h") as sp:
+        w_leaves, _ = flatten_params(params)
+        if sp.recording:
+            sp.args["bytes"] = sum(w.nbytes for w in w_leaves)
     comm_s = None
     # re-read the party size at every sync: join/leave moves it, and the
     # denominator each push used rides along as ``hfa_n``
@@ -257,7 +294,7 @@ def _hfa_sync_round(kv, params, treedef, n_leaves, buf, m,
                     priority=-tid)
     with m.phase("pull_wait"):
         kv.wait_all()
-    return unflatten_params(treedef, buf), comm_s
+    return _to_device(kv, treedef, buf), comm_s
 
 
 def run_worker_esync(

@@ -82,6 +82,11 @@ class Profiler:
         with self._mu:
             self._events.append(ev)
 
+    def events(self) -> List[dict]:
+        """A copy of the buffer's event list (the dicts are shared)."""
+        with self._mu:
+            return list(self._events)
+
     def count(self, name: str, value: float = 1.0):
         if not self.running:
             return

@@ -831,11 +831,18 @@ def _trace_invariants(out_dir: pathlib.Path) -> dict:
     }
 
 
+# Spans the port records that the JAX package has no counterpart of: the
+# worker's model step and copies, the global tier's pull serves and the
+# merge lanes' own work (docs/tracing.md, "The port").
+PORT_SPANS = {"worker.grad", "worker.d2h", "worker.h2d", "global.pull_serve",
+              "local.merge", "global.merge"}
+
+
 def test_trace_demo_counterpart_matches_the_jax_script(tmp_path):
     """The port's ``examples/trace_demo.py`` on the CPU and the JAX
     script's Python beside it: the same roles, no dangling edge in
     either, the same number of rounds, a dominant stage in each, and
-    the same span names."""
+    the same span names besides the port's own (``PORT_SPANS``)."""
     from geomx_tpu_torch.examples import trace_demo
 
     rec = trace_demo.run("cpu", str(tmp_path / "port"))
@@ -847,7 +854,9 @@ def test_trace_demo_counterpart_matches_the_jax_script(tmp_path):
     assert port["dangling"] == jax_side["dangling"] == 0
     assert port["rounds"] == jax_side["rounds"] > 0
     assert port["dominant"] and jax_side["dominant"]
-    assert port["names"] == jax_side["names"]
+    assert port["names"] - PORT_SPANS == jax_side["names"]
+    assert port["names"] & PORT_SPANS >= {"worker.grad", "worker.d2h",
+                                          "worker.h2d", "global.pull_serve"}
 
 
 def main(argv=None) -> int:
